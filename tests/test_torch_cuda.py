@@ -1,0 +1,155 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device: it carries the ``cuda`` marker and
+skips without one. On a machine with a card (where JAX need not be
+installed, hence ``--noconftest``):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: exact (bitwise). The kernels and the plain versions compute the
+same stable order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import vkradixsort_tpu_torch as vt
+from vkradixsort_tpu_torch.ops import common, merge
+
+pytestmark = pytest.mark.cuda
+
+COMBOS = [(1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2)]  # (nck, ncarry)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _planes(rng, n, nck, ncarry, dev):
+    keys = [rng.integers(-4, 4, size=n).astype(np.int32) for _ in range(nck)]
+    keys[0][rng.random(n) < 0.1] = np.iinfo(np.int32).max  # equal to the pad
+    carry = [rng.integers(-(2**31), 2**31, size=n).astype(np.int32) for _ in range(ncarry)]
+    return [torch.from_numpy(x).to(dev) for x in keys + carry]
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device == w.device and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nck,ncarry", COMBOS)
+@pytest.mark.parametrize("n,tile", [(1, 2), (4096, 4096), (3 * 8192 + 5, 8192),
+                                    (2 * 16384 + 1, 16384), (1000, 64)])
+def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
+    rng = np.random.default_rng(n + 10 * nck + ncarry)
+    planes = _planes(rng, n, nck, ncarry, dev)
+    before = merge.tilesort.launches
+    got = merge.tilesort(planes, nck, tile)
+    assert merge.tilesort.launches == before + 1
+    _equal(got, merge.tilesort_plain(planes, nck, tile))
+
+
+@pytest.mark.parametrize("nck,ncarry", COMBOS)
+@pytest.mark.parametrize("n,run", [(5, 2), (3000, 256), (5 * 4096 + 3, 4096),
+                                   (3 * 16384, 16384), (40000, 32768)])
+def test_mergepath_kernel_matches_plain(dev, nck, ncarry, n, run):
+    rng = np.random.default_rng(n + run + nck)
+    runs = merge.tilesort_plain(_planes(rng, n, nck, ncarry, dev), nck, run)
+    before = merge.mergepath_level.launches
+    got = merge.mergepath_level(runs, nck, run)
+    assert merge.mergepath_level.launches == before + 1
+    _equal(got, merge.mergepath_level_plain(runs, nck, run))
+
+
+def test_kernel_path_never_takes_the_plain_versions(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(merge, "tilesort_plain", refuse)
+    monkeypatch.setattr(merge, "mergepath_level_plain", refuse)
+    rng = np.random.default_rng(7)
+    n = (1 << 20) + 3
+    keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
+    vals = np.arange(n, dtype=np.uint32)
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev))
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
+    np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+
+
+@pytest.mark.parametrize("key_dtype,payloads", [
+    (np.uint32, (np.uint32,)),
+    (np.float32, (np.float32, np.int32)),
+    (np.uint64, (np.uint32,)),
+    (np.int64, (np.float64,)),
+    (np.float16, (np.uint32, np.uint32)),
+])
+@pytest.mark.parametrize("backend", [None, "merge", "tiled"])
+def test_sort_pairs_cuda_matches_cpu(dev, key_dtype, payloads, backend):
+    rng = np.random.default_rng(11)
+    n = 70_001
+    keys = (rng.integers(0, 50, size=n) - 25).astype(key_dtype)
+    vals = [rng.integers(0, 1 << 30, size=n).astype(d) for d in payloads]
+    cpu_k = torch.from_numpy(keys)
+    cpu_v = [torch.from_numpy(v) for v in vals]
+    for descending in (False, True):
+        gk, gv = vt.sort_pairs(cpu_k.to(dev), [v.to(dev) for v in cpu_v], backend=backend,
+                               descending=descending)
+        ck, cv = vt.sort_pairs(cpu_k, cpu_v, backend="tiled", descending=descending)
+        torch.cuda.synchronize()
+        assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(ck))
+        for g, c in zip(gv, cv):
+            assert torch.equal(common.bits_view(g).cpu(), common.bits_view(c))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.uint32, torch.uint64,
+                                   torch.int8, torch.int16, torch.int32, torch.int64,
+                                   torch.float16, torch.bfloat16, torch.float32, torch.float64])
+def test_encodings_cuda_match_cpu(dev, dtype):
+    rng = np.random.default_rng(3)
+    bits = torch.from_numpy(rng.integers(-(2**62), 2**62, size=4096))
+    keys = bits.view(torch.int8)[: 4096 * dtype.itemsize].view(dtype)
+    enc = common.encode_keys(keys.to(dev))
+    assert torch.equal(common.bits_view(enc).cpu(), common.bits_view(common.encode_keys(keys)))
+    dec = common.decode_keys(enc, dtype)
+    assert torch.equal(common.bits_view(dec).cpu(), common.bits_view(keys))
+    out = vt.sort(keys.to(dev))
+    assert torch.equal(common.bits_view(out).cpu(), common.bits_view(vt.sort(keys)))
+
+
+def test_oversized_tile_raises(dev):
+    planes = [torch.zeros(10, dtype=torch.int32, device=dev)] * 2
+    with pytest.raises(ValueError, match="shared memory"):
+        merge.tilesort(planes, 2, 1 << 16)
+
+
+def test_gpu_context(dev):
+    info = vt.GPUContext(dev).info
+    assert info.sm_count > 0 and info.l2_bytes > 0
+    assert info.smem_per_block_optin >= 48 * 1024
+    assert info.smem_per_sm >= info.smem_per_block_optin
+    for nck in (1, 2):
+        need = 4 * (nck + 1) * merge.default_tile(nck, dev) + merge.SMEM_RESERVED_PER_BLOCK
+        assert 2 * need <= info.smem_per_sm
+
+
+def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
+    # three 4-byte payloads need more carry planes than the kernels take
+    def refuse(*a, **k):
+        raise AssertionError("the merge engine got more payloads than it carries")
+
+    monkeypatch.setattr(merge, "sort_merge", refuse)
+    n = 1 << 20
+    keys = torch.randint(0, 100, (n,), dtype=torch.int32, device=dev)
+    vals = [torch.arange(n, dtype=torch.int32, device=dev) + i for i in range(3)]
+    ok, ov = vt.sort_pairs(keys, vals)
+    perm = torch.sort(keys, stable=True).indices
+    assert torch.equal(ok, keys[perm])
+    for o, v in zip(ov, vals):
+        assert torch.equal(o, v[perm])

@@ -1,0 +1,197 @@
+"""The PyTorch port's merge engine (ops/merge.py) on CPU tensors, where the
+wrappers run the kernels' plain versions, held against the JAX engine.
+
+Tolerance: exact (bitwise). A stable sort has one right answer and the
+split points are integers. The one call of the JAX engine in Pallas
+interpret mode (about 12 s on one core) runs once, in a module-scoped
+fixture; every other case is held against the JAX library path
+(``backend="tiled"``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vkradixsort_tpu as vk
+from vkradixsort_tpu.ops import merge as jmerge
+from vkradixsort_tpu_torch.ops import merge
+
+T = 4096  # the JAX engine's tile at tile_rows=2, and the port's tile here
+I32_MAX = np.iinfo(np.int32).max
+
+
+def _runs_sorted(rng, n, run, nck):
+    """nck int32 planes with heavy ties and pad-valued keys, each run of
+    ``run`` elements sorted lexicographically (ascending)."""
+    planes = [rng.integers(-3, 3, size=n).astype(np.int32) for _ in range(nck)]
+    for p in planes:
+        p[rng.random(n) < 0.1] = I32_MAX
+    for s in range(0, n, run):
+        order = np.lexsort(tuple(p[s:s + run] for p in planes[::-1]))
+        for p in planes:
+            p[s:s + run] = p[s:s + run][order]
+    return planes
+
+
+def _jax_layout(planes, run, npad, buflen):
+    """The JAX engine's storage at the level of ``run``: pad-sentinel tail to
+    ``buflen``, every odd run of the first ``npad`` elements reversed
+    (descending)."""
+    out = []
+    for p in planes:
+        w = np.full(buflen, I32_MAX, np.int32)
+        w[: p.size] = p
+        for i, s in enumerate(range(0, npad, run)):
+            if i % 2:
+                e = min(s + run, npad)
+                w[s:e] = w[s:e][::-1].copy()
+        out.append(jnp.asarray(w))
+    return out
+
+
+@pytest.mark.parametrize("nck", [1, 2])
+@pytest.mark.parametrize("run", [T, 4 * T])
+def test_level_splits_match_jax(rng, nck, run):
+    # 3 full run pairs at run=T plus a ragged tail; at 4T the one pair has
+    # a partial B run
+    n = 6 * T + 1234
+    planes = _runs_sorted(rng, n, run, nck)
+    npad = -(-n // T) * T
+    buflen = npad + 2 * T
+    meta = np.asarray(
+        jmerge._level_splits(_jax_layout(planes, run, npad, buflen), nck, run, T, npad,
+                             buflen // T)
+    )
+    ntiles = -(-n // T)
+    starts = np.arange(ntiles) * T
+    run_a = starts // (2 * run) * (2 * run)
+    want = meta[:ntiles, 0] + meta[:ntiles, 1] - run_a
+    got = merge.level_splits_plain([torch.from_numpy(p) for p in planes], nck, run, T)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def jax_engine_u64_kv():
+    """u64 keys with heavy ties and keys equal to the pad sentinel (both
+    planes INT32_MAX), two 4-byte payloads, a ragged last tile: two compare
+    and two carry planes, through the JAX engine in interpret mode. Its seed
+    as wide as the tile replaces the Pallas tile sort (whose interpret-mode
+    compile alone takes about 30 s on one core), so the call runs the merge
+    kernel on stable, tile-sorted runs."""
+    rng = np.random.default_rng(0x5EED)
+    n = 9000
+    keys = rng.integers(0, 4, size=n).astype(np.uint64) * np.uint64(0x5555555555555555)
+    keys[rng.random(n) < 0.2] = np.uint64(2**64 - 1)
+    vals = (rng.integers(0, 2**32, size=n, dtype=np.uint32),
+            rng.standard_normal(n).astype(np.float32))
+    out_k, out_v = jmerge.sort_merge(
+        jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals), tile_rows=2, interpret=True,
+        segseed=T,
+    )
+    return (keys, vals), (np.asarray(out_k),) + tuple(np.asarray(v) for v in out_v)
+
+
+def test_sort_merge_matches_jax_engine(jax_engine_u64_kv):
+    (keys, vals), want = jax_engine_u64_kv
+    out_k, out_v = merge.sort_merge(
+        torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals), tile=T
+    )
+    for got, w in zip((out_k,) + out_v, want):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+@pytest.mark.parametrize(
+    "n,key_dtype,payloads",
+    [
+        (0, np.uint32, (np.uint32,)),
+        (1, np.uint32, (np.uint32,)),
+        (T, np.uint32, (np.uint32,)),
+        (5 * T + 17, np.uint32, (np.uint32,)),  # the main path's plane layout
+        (5 * T + 17, np.uint32, ()),
+        (3 * T + 1, np.uint32, (np.float32, np.int32)),
+        (3 * T + 1, np.uint64, (np.uint32,)),
+        (3 * T + 1, np.uint32, (np.float64,)),
+        (3 * T + 1, np.uint64, (np.float64,)),  # two key and two carry planes
+    ],
+)
+def test_sort_merge_matches_jax_tiled(rng, n, key_dtype, payloads):
+    hi = int(np.iinfo(key_dtype).max)
+    keys = rng.integers(0, 8, size=n).astype(key_dtype)
+    keys[rng.random(n) < 0.2] = hi  # the pad sentinel's value
+    vals = [rng.integers(0, 1 << 30, size=n).astype(d) for d in payloads]
+    out_k, out_v = merge.sort_merge(
+        torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals), tile=T
+    )
+    if vals:
+        jk, jv = vk.sort_pairs(jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals),
+                               backend="tiled")
+    else:
+        jk, jv = vk.sort(jnp.asarray(keys), backend="tiled"), ()
+    np.testing.assert_array_equal(out_k.numpy(), np.asarray(jk))
+    for o, j in zip(out_v, jv):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(j))
+
+
+def test_plain_kernels_compose_to_stable_sort(rng):
+    # the plain tile sort and every plain merge level, driven by hand, give
+    # numpy's stable order; tile 4096 over 5 tiles -> 3 merge levels
+    n = 5 * T - 3
+    keys = rng.integers(-5, 5, size=n).astype(np.int32)
+    pos = np.arange(n, dtype=np.int32)
+    planes = merge.tilesort_plain([torch.from_numpy(keys), torch.from_numpy(pos)], 1, T)
+    for s in range(0, n, T):
+        tile = planes[0][s:s + T].numpy()
+        assert (tile[1:] >= tile[:-1]).all()
+    run, levels = T, 0
+    while run < n:
+        planes = merge.mergepath_level_plain(planes, 1, run)
+        run, levels = run * 2, levels + 1
+    assert levels == 3
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(planes[0].numpy(), keys[perm])
+    np.testing.assert_array_equal(planes[1].numpy(), perm)
+
+
+def test_default_tile_from_shared_memory():
+    # the largest power of two whose key planes + position plane fit the
+    # H100's 233,472 B per SM twice over (1 KB reserved per block), so two
+    # tile-sort blocks share an SM
+    cpu = torch.device("cpu")
+    assert merge.default_tile(1, cpu) == 8192
+    assert merge.default_tile(2, cpu) == 8192
+    for nck in (1, 2):
+        need = [4 * (nck + 1) * t + merge.SMEM_RESERVED_PER_BLOCK for t in (8192, 16384)]
+        assert 2 * need[0] <= merge.H100_SMEM_PER_SM < 2 * need[1]
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    good = [torch.zeros(8, dtype=torch.int32)]
+    with pytest.raises(ValueError):
+        merge.tilesort(good, 1, 6)  # not a power of two
+    with pytest.raises(ValueError):
+        merge.mergepath_level([torch.zeros(8, dtype=torch.int64)], 1, 4)
+    with pytest.raises(ValueError):
+        merge.tilesort(good, 3, 4)
+    meta = [torch.zeros(8, dtype=torch.int32, device="meta")]
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.tilesort(meta, 1, 4)  # neither the CPU's plain version nor a kernel
+    with pytest.raises(TypeError):
+        merge.sort_merge(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        merge.sort_merge(torch.zeros(4, dtype=torch.int32).view(torch.uint32),
+                         (torch.zeros(4, dtype=torch.uint8),))
+    with pytest.raises(ValueError, match="tiled"):  # three carry planes
+        merge.sort_merge(torch.zeros(4, dtype=torch.int32).view(torch.uint32),
+                         (torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int64)))
+
+
+def test_planes_sentinel_valued_keys(rng):
+    # keys equal to the INT32_MAX pad of a ragged tile must still sort
+    # before the padding and exactly (the JAX engine's tests/test_merge.py
+    # case, keys only, through the tile sort and two merge levels)
+    n = 10_000
+    keys = rng.integers(0, 3, size=n).astype(np.int32)
+    keys[keys == 2] = I32_MAX
+    (out,) = merge.sort_merge_planes([torch.from_numpy(keys)], 1, tile=T)
+    np.testing.assert_array_equal(out.numpy(), np.sort(keys))

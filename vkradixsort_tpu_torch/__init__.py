@@ -1,0 +1,33 @@
+"""vkradixsort_tpu_torch: the sort engine ported to PyTorch and CUDA.
+
+The port of ``vkradixsort_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
+It imports ``torch`` and never ``jax``. Public API, as in the JAX package:
+
+    sort(keys)                  -> sorted keys
+    sort_pairs(keys, values)    -> (sorted keys, values permuted alongside)
+    argsort(keys)               -> stable argsort indices
+    sort_segments(keys_2d)      -> every row sorted
+
+The stable key-value sort of large inputs on a CUDA tensor runs the merge
+engine's hand-written kernels (``csrc/``), built with ``nvcc`` at first use.
+"""
+
+from vkradixsort_tpu_torch.engine.config import SortConfig
+from vkradixsort_tpu_torch.engine.context import GPUContext
+from vkradixsort_tpu_torch.ops.common import decode_keys, encode_keys, sortable_dtype
+from vkradixsort_tpu_torch.ops.dispatch import argsort, sort, sort_pairs, sort_segments
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "sort",
+    "sort_pairs",
+    "argsort",
+    "sort_segments",
+    "encode_keys",
+    "decode_keys",
+    "sortable_dtype",
+    "SortConfig",
+    "GPUContext",
+    "__version__",
+]

@@ -1,0 +1,119 @@
+"""Key encodings and shape helpers shared by every sort path.
+
+Port of ``vkradixsort_tpu/ops/common.py``: every key dtype maps to an
+unsigned int (uint32 for keys of at most 4 bytes, uint64 above) whose
+ascending order is the key order, and back. Floats sort in IEEE-754 total
+order: ``-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN``.
+
+torch implements shifts, comparisons, ``~`` and ``where`` for int32/int64 but
+not for uint32/uint64, so the bit work here runs on same-width signed views
+and only the results are viewed as unsigned. Signed-view tricks used below:
+"sign bit set" is ``bits < 0``, and XOR with ``-1`` is the bit complement.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MIN32 = -(1 << 31)  # 0x80000000 as an int32 scalar
+_MIN64 = -(1 << 63)  # 0x8000000000000000 as an int64 scalar
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def sortable_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The unsigned dtype whose ascending order realizes ``dtype``'s order."""
+    _check_key_dtype(dtype)
+    return torch.uint32 if dtype.itemsize <= 4 else torch.uint64
+
+
+def _check_key_dtype(dtype: torch.dtype) -> None:
+    if dtype == torch.bool or dtype.is_complex or dtype.itemsize not in _SIGNED:
+        raise TypeError(f"unsupported key dtype {dtype}")
+
+
+def _is_unsigned(dtype: torch.dtype) -> bool:
+    return not dtype.is_floating_point and not dtype.is_signed
+
+
+def encode_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Map keys to unsigned ints whose ascending uint order is the key order.
+
+    - unsigned ints: identity (widened to uint32 / uint64)
+    - signed ints: flip the sign bit
+    - floats: negative values get all bits flipped, the rest get the sign bit
+      set (IEEE-754 total order)
+    """
+    dtype = keys.dtype
+    _check_key_dtype(dtype)
+    size = dtype.itemsize
+    if _is_unsigned(dtype):
+        if size == 4 or size == 8:
+            return keys
+        return keys.to(torch.int32).view(torch.uint32)
+    if not dtype.is_floating_point:
+        if size == 8:
+            return (keys ^ _MIN64).view(torch.uint64)
+        if size == 4:
+            return (keys ^ _MIN32).view(torch.uint32)
+        nbits = 8 * size
+        flipped = (keys.to(torch.int32) ^ (1 << (nbits - 1))) & ((1 << nbits) - 1)
+        return flipped.view(torch.uint32)
+    if size == 2:
+        bits = keys.view(torch.int16).to(torch.int32) & 0xFFFF
+        mask = torch.where(bits >= 0x8000, 0xFFFF, 0x8000).to(torch.int32)
+        return (bits ^ mask).view(torch.uint32)
+    bits = keys.view(_SIGNED[size])
+    sign = _MIN64 if size == 8 else _MIN32
+    mask = torch.where(bits < 0, -1, sign).to(bits.dtype)
+    return (bits ^ mask).view(sortable_dtype(dtype))
+
+
+def decode_keys(encoded: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`encode_keys` back to ``dtype``."""
+    _check_key_dtype(dtype)
+    size = dtype.itemsize
+    bits = encoded.view(_SIGNED[encoded.dtype.itemsize])
+    if _is_unsigned(dtype):
+        if size == 4 or size == 8:
+            return bits.view(dtype)
+        return bits.to(dtype)
+    if not dtype.is_floating_point:
+        if size == 8:
+            return bits ^ _MIN64
+        if size == 4:
+            return bits ^ _MIN32
+        return (bits ^ (1 << (8 * size - 1))).to(dtype)
+    if size == 2:
+        low = bits & 0xFFFF
+        mask = torch.where(low >= 0x8000, 0x8000, 0xFFFF).to(torch.int32)
+        return (low ^ mask).to(torch.int16).view(dtype)
+    sign = _MIN64 if size == 8 else _MIN32
+    mask = torch.where(bits < 0, sign, -1).to(bits.dtype)
+    return (bits ^ mask).view(dtype)
+
+
+def complement(enc: torch.Tensor) -> torch.Tensor:
+    """Bit complement of encoded keys: an order-reversing involution on the
+    unsigned domain (the ``descending=`` transform)."""
+    return (enc.view(_SIGNED[enc.dtype.itemsize]) ^ -1).view(enc.dtype)
+
+
+def bits_view(x: torch.Tensor) -> torch.Tensor:
+    """Same-width signed int view of any 1/2/4/8-byte tensor (bool as int8),
+    for the ops torch lacks on unsigned dtypes."""
+    if x.dtype == torch.bool:
+        return x.view(torch.int8)
+    return x.view(_SIGNED[x.dtype.itemsize])
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for any dtype (CUDA has no indexing of unsigned dtypes)."""
+    return bits_view(x)[idx].view(x.dtype)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)

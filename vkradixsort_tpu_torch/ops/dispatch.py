@@ -1,0 +1,182 @@
+"""Public sort API: ``sort``, ``sort_pairs``, ``argsort``, ``sort_segments``.
+
+Port of ``vkradixsort_tpu/ops/dispatch.py``. Two engines so far:
+
+  engine    what runs
+  --------  -----------------------------------------------------------------
+  "tiled"   ``torch.sort(stable=True)`` in sign-flipped int space
+            (ops/tiled.py); every device, every dtype
+  "merge"   tile-sort + merge-path ladder (ops/merge.py): hand-written CUDA
+            kernels on CUDA tensors, their plain versions on CPU tensors
+
+``backend=None`` decides from the tensor, up front: CUDA tensors follow
+``engine/config.ROUTE_TABLE``; CPU tensors take "tiled" (``backend="merge"``
+runs the merge engine's plain versions there). Every entry point is stable
+and bitwise-exact against the JAX package on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig, route_for
+from vkradixsort_tpu_torch.ops import merge, segsort, tiled
+from vkradixsort_tpu_torch.ops.common import (
+    complement,
+    decode_keys,
+    encode_keys,
+    sortable_dtype,
+)
+
+ENGINES = ("tiled", "merge")
+
+
+def _route(keys: torch.Tensor, backend: str | None, op: str, vals: tuple = ()) -> str:
+    if backend is not None:
+        if backend not in ENGINES:
+            raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
+        return backend
+    if keys.device.type != "cuda":
+        return "tiled"
+    if any(v.element_size() != 4 for v in vals) or len(vals) > merge.MAX_KERNEL_CARRY:
+        return "tiled"  # the table's kv rows are for at most two 4-byte payloads
+    wide = sortable_dtype(keys.dtype) == torch.uint64
+    return route_for(op, keys.shape[0], wide)
+
+
+def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str):
+    """Sort encoded keys (and payloads) on ``path``; returns
+    ``(sorted_keys, sorted_vals_tuple)``."""
+    if path == "tiled":
+        return tiled.sort_tiled(enc, vals)
+    if path == "merge":
+        return merge.sort_merge(enc, vals, tile=config.tile)
+    raise ValueError(f"unknown sort path {path!r}")
+
+
+def _sort_encoded_keys(keys, vals, config, path, descending):
+    enc = encode_keys(keys)
+    if descending:
+        enc = complement(enc)
+    out_k, out_vs = _sort_encoded(enc, vals, config, path)
+    if descending:
+        out_k = complement(out_k)
+    return decode_keys(out_k, keys.dtype), out_vs
+
+
+def sort(
+    keys: torch.Tensor,
+    *,
+    config: SortConfig = DEFAULT_CONFIG,
+    backend: str | None = None,
+    descending: bool = False,
+) -> torch.Tensor:
+    """Stable ascending (or descending) sort of a 1-D key tensor.
+
+    Float keys sort by IEEE-754 total order (``-0.0`` strictly before
+    ``+0.0``; NaNs placed by their sign bit). ``descending=True`` reverses the
+    key order and keeps ties in input order: the encoded keys are
+    bit-complemented before and after an ascending stable sort. 2-D keys
+    sort every row (:func:`sort_segments`).
+    """
+    if keys.dim() == 2:
+        if backend is not None:
+            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+        return sort_segments(keys, descending=descending)
+    if keys.dim() != 1:
+        raise ValueError(f"sort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
+    path = _route(keys, backend, "keys")
+    out, _ = _sort_encoded_keys(keys, (), config, path, descending)
+    return out
+
+
+def sort_pairs(
+    keys: torch.Tensor,
+    values,
+    *,
+    config: SortConfig = DEFAULT_CONFIG,
+    backend: str | None = None,
+    descending: bool = False,
+    stable: bool = True,
+):
+    """Stable key-value sort; values ride along with their keys.
+
+    ``values`` may be one tensor or a tuple/list of tensors (all length-N):
+    every payload is permuted by the same stable key order in one sort.
+    Returns ``(sorted_keys, values_like)`` with the container type kept.
+    ``stable=False`` runs the stable path, which is also a valid unstable
+    answer.
+    """
+    multi = isinstance(values, (tuple, list))
+    vals = tuple(values) if multi else (values,)
+    if keys.dim() == 2:
+        if backend is not None:
+            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+        return sort_segments(keys, values, descending=descending)
+    if keys.dim() != 1 or any(v.shape[:1] != keys.shape[:1] or v.dim() != 1 for v in vals):
+        raise ValueError(
+            "sort_pairs expects matching 1-D tensors, got "
+            f"{tuple(keys.shape)} / {[tuple(v.shape) for v in vals]}"
+        )
+    if any(v.device != keys.device for v in vals):
+        raise ValueError("keys and values must lie on one device")
+    path = _route(keys, backend, "kv", vals)
+    out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
+    return out_k, (type(values)(out_vs) if multi else out_vs[0])
+
+
+def _positions(n: int, device) -> torch.Tensor:
+    """0..n-1 as uint32 (uint64 from 2^32 on), like the JAX argsort."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if n < 1 << 32:
+        return idx.to(torch.int32).view(torch.uint32)
+    return idx.view(torch.uint64)
+
+
+def argsort(
+    keys: torch.Tensor,
+    *,
+    config: SortConfig = DEFAULT_CONFIG,
+    backend: str | None = None,
+    descending: bool = False,
+) -> torch.Tensor:
+    """Stable argsort: ``sort_pairs(keys, arange)`` (uint32 indices for
+    N < 2^32). 2-D keys give each row's permutation."""
+    if keys.dim() == 2:
+        if backend is not None:
+            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+        rows, cols = keys.shape
+        idx = _positions(cols, keys.device).expand(rows, cols)
+        _, perm = sort_segments(keys, idx, descending=descending)
+        return perm
+    if keys.dim() != 1:
+        raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
+    idx = _positions(keys.shape[0], keys.device)
+    _, perm = sort_pairs(keys, idx, config=config, backend=backend, descending=descending)
+    return perm
+
+
+def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
+    """Sort every row of a 2-D tensor independently (batched segment sort),
+    stably, with ``torch.sort`` along the rows.
+
+    ``values`` may be one 2-D tensor or a tuple/list of them. Returns
+    ``sorted_keys`` or ``(sorted_keys, permuted_values)`` with the container
+    type kept.
+    """
+    if keys.dim() != 2:
+        raise ValueError(f"sort_segments expects 2-D keys, got {tuple(keys.shape)}")
+    multi = isinstance(values, (tuple, list))
+    vals = () if values is None else (tuple(values) if multi else (values,))
+    if any(v.shape != keys.shape for v in vals):
+        raise ValueError("sort_segments payloads must have the keys' shape")
+    enc = encode_keys(keys)
+    if descending:
+        enc = complement(enc)
+    out_enc, out_vs = segsort.sort_segments(enc, vals)
+    if descending:
+        out_enc = complement(out_enc)
+    out_k = decode_keys(out_enc, keys.dtype)
+    if values is None:
+        return out_k
+    return out_k, (type(values)(out_vs) if multi else out_vs[0])

@@ -1,0 +1,64 @@
+"""Device timing with CUDA events.
+
+Port of ``vkradixsort_tpu/utils/timing.py``. The JAX version chained calls
+inside one jitted loop to hide a host round trip; on a local card, events
+recorded on the stream around each call time the device directly. Every
+timed call sorts a fresh remix of the keys (made outside the timed window),
+so no sort is timed on input that is already sorted. Timing needs a card:
+there is no CPU fallback.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+_MIX64 = 0xBF58476D1CE4E5B9 - (1 << 64)  # splitmix64 multiplier as an int64
+
+
+def _srl(x: torch.Tensor, s: int, nbits: int) -> torch.Tensor:
+    """Logical right shift of a signed view (torch only shifts arithmetically)."""
+    return (x >> s) & ((1 << (nbits - s)) - 1)
+
+
+def remix(x: torch.Tensor) -> torch.Tensor:
+    """Cheap bijective hash (splitmix-style) of uint32/uint64 keys, worked on
+    int32/int64 views, where multiplication wraps."""
+    if x.dtype == torch.uint32:
+        b = x.view(torch.int32)
+        b = b ^ _srl(b, 16, 32)
+        b = b * 0x7FEB352D
+        b = b ^ _srl(b, 15, 32)
+        return b.view(torch.uint32)
+    if x.dtype == torch.uint64:
+        b = x.view(torch.int64)
+        b = b ^ _srl(b, 30, 64)
+        b = b * _MIX64
+        b = b ^ _srl(b, 27, 64)
+        return b.view(torch.uint64)
+    raise TypeError(f"remix takes uint32/uint64 keys, got {x.dtype}")
+
+
+def measure_seconds_per_call(
+    f: Callable, keys: torch.Tensor, *args, reps: int = 10, warmup: int = 2
+) -> float:
+    """Median device seconds of one ``f(keys, *args)`` on the card, after
+    ``warmup`` untimed calls; each call gets a fresh remix of ``keys``."""
+    if keys.device.type != "cuda":
+        raise RuntimeError(f"timing needs a CUDA tensor, got {keys.device}")
+    for _ in range(warmup):
+        keys = remix(keys)
+        f(keys, *args)
+    pairs = []
+    for _ in range(reps):
+        keys = remix(keys)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f(keys, *args)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / 1e3
