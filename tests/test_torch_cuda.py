@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import vkradixsort_tpu_torch as vt
-from vkradixsort_tpu_torch.ops import common, merge
+from vkradixsort_tpu_torch.ops import common, fused, histogram, merge, radix_tiled, reference
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +153,113 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
     assert torch.equal(ok, keys[perm])
     for o, v in zip(ov, vals):
         assert torch.equal(o, v[perm])
+
+
+def _radix_keys(rng, n, dtype, kind):
+    """Keys for the radix kernels: "ties" (13 values, every byte alike),
+    "max" (a fifth equal to the dtype's maximum), "uniform" or "constant"."""
+    hi = np.iinfo(dtype).max
+    if kind == "uniform":
+        return rng.integers(0, int(hi), size=n, dtype=dtype, endpoint=True)
+    if kind == "constant":
+        return np.full(n, 0x5A, dtype=dtype)
+    keys = rng.integers(0, 13, size=n).astype(dtype)
+    keys *= dtype(0x01010101 if dtype == np.uint32 else 0x0101010101010101)
+    if kind == "max":
+        keys[rng.random(n) < 0.2] = hi
+    return keys
+
+
+RADIX_SHAPES = [  # (n, tile): ragged, one element, tiles smaller than a strip
+    (1, 2048), (2048, 2048), (5 * 2048 + 17, 2048), (70_001, 2048), (1000, 100), (3001, 32),
+    (4097, 4096),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("kind", ["ties", "max", "uniform", "constant"])
+@pytest.mark.parametrize("n,tile", RADIX_SHAPES)
+def test_histogram_and_destination_kernels_match_plain(dev, dtype, kind, n, tile):
+    rng = np.random.default_rng(n + tile)
+    keys = torch.from_numpy(_radix_keys(rng, n, dtype, kind)).to(dev)
+    for shift in range(0, 8 * keys.element_size(), 8):
+        before = (histogram.tile_histograms.launches, radix_tiled.tile_destinations.launches)
+        hist = histogram.tile_histograms(keys, shift, tile)
+        dest = radix_tiled.pass_destinations(keys, shift, tile)
+        assert (histogram.tile_histograms.launches,
+                radix_tiled.tile_destinations.launches) == (before[0] + 2, before[1] + 1)
+        _equal([hist, dest], [histogram.tile_histograms_plain(keys, shift, tile),
+                              radix_tiled.pass_destinations_plain(keys, shift, tile)])
+        base = reference.exclusive_bin_offsets(hist)
+        _equal([radix_tiled.tile_destinations(keys, shift, tile, base)],
+               [radix_tiled.tile_destinations_plain(keys, shift, tile, base)])
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("val_dtype", [None, np.float32, np.uint64])
+@pytest.mark.parametrize("kind", ["ties", "max", "uniform"])
+@pytest.mark.parametrize("n", [2, 33, 1000, 32768])
+def test_fused_kernel_matches_plain(dev, key_dtype, val_dtype, kind, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(_radix_keys(rng, n, key_dtype, kind)).to(dev)
+    vals = None
+    if val_dtype is not None:
+        vals = torch.from_numpy(rng.standard_normal(n).astype(np.float64).view(np.uint64)
+                                .astype(val_dtype)).to(dev)
+    keys_in, vals_in = keys.clone(), None if vals is None else vals.clone()
+    before = fused.sort_fused.launches
+    ok, ov = fused.sort_fused(keys, vals)
+    assert fused.sort_fused.launches == before + 1
+    pk, pv = fused.sort_fused_plain(keys, vals)
+    _equal([common.bits_view(ok)], [common.bits_view(pk)])
+    if vals is None:
+        assert ov is None
+    else:
+        _equal([common.bits_view(ov), common.bits_view(vals)],
+               [common.bits_view(pv), common.bits_view(vals_in)])
+    _equal([common.bits_view(keys)], [common.bits_view(keys_in)])  # input untouched
+
+
+def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(histogram, "tile_histograms_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "tile_destinations_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "pass_destinations_plain", refuse)
+    monkeypatch.setattr(fused, "sort_fused_plain", refuse)
+    rng = np.random.default_rng(8)
+    for backend, n in [("radix_tiled", (1 << 20) + 3), ("fused", 30_000)]:
+        keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
+        vals = np.arange(n, dtype=np.uint32)
+        ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
+                               backend=backend)
+        perm = np.argsort(keys, kind="stable")
+        np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
+        np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+
+
+@pytest.mark.parametrize("key_dtype,payload", [
+    (np.uint32, np.uint32), (np.float32, np.float64), (np.int64, np.int32), (np.uint64, None),
+])
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
+def test_radix_engines_cuda_match_cpu(dev, key_dtype, payload, backend):
+    rng = np.random.default_rng(12)
+    n = 20_001
+    keys = (rng.integers(0, 50, size=n) - 25).astype(key_dtype)
+    keys[rng.random(n) < 0.1] = np.iinfo(key_dtype).max if key_dtype != np.float32 else np.inf
+    cpu_k = torch.from_numpy(keys)
+    for descending in (False, True):
+        if payload is None:
+            got = vt.sort(cpu_k.to(dev), backend=backend, descending=descending)
+            want = vt.sort(cpu_k, backend="tiled", descending=descending)
+            torch.cuda.synchronize()
+            assert torch.equal(common.bits_view(got).cpu(), common.bits_view(want))
+            continue
+        cpu_v = torch.from_numpy(rng.integers(0, 1 << 30, size=n).astype(payload))
+        gk, gv = vt.sort_pairs(cpu_k.to(dev), cpu_v.to(dev), backend=backend,
+                               descending=descending)
+        ck, cv = vt.sort_pairs(cpu_k, cpu_v, backend="tiled", descending=descending)
+        torch.cuda.synchronize()
+        assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(ck))
+        assert torch.equal(common.bits_view(gv).cpu(), common.bits_view(cv))

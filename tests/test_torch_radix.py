@@ -1,0 +1,460 @@
+"""The PyTorch port's radix engines on CPU tensors, where the kernel wrappers
+run their plain versions, held against the JAX package on the same numpy
+inputs: the histogram and destination kernels of ``radix_tiled``, the
+``fused`` one-launch sort, the ``reference`` radix oracle, and the public
+API through ``backend="radix_tiled"``, ``"fused"`` and ``"reference"``.
+
+Tolerance: exact (bitwise). Digit counts are integers and a stable sort has
+one right answer. The JAX Pallas kernels run in interpret mode, each shape
+once, in module-scoped fixtures.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vkradixsort_tpu as vk
+import vkradixsort_tpu_torch as vt
+from vkradixsort_tpu.engine.config import SortConfig as JaxSortConfig
+from vkradixsort_tpu.ops import common as jcommon
+from vkradixsort_tpu.ops import fused as jfused
+from vkradixsort_tpu.ops import histogram as jhistogram
+from vkradixsort_tpu.ops import radix_tiled as jradix_tiled
+from vkradixsort_tpu.ops import reference as jreference
+from vkradixsort_tpu_torch.ops import common, fused, histogram, radix_tiled, reference
+
+JCFG = vk.SortConfig(interpret=True)
+TILE = 2048
+N_SLICE = 3001  # one ragged size for every JAX radix_tiled call: one compile per key width
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _keys(seed: int, n: int, dtype, kind: str) -> np.ndarray:
+    """Seeded keys: "ties" (13 values), "max" (a fifth equal to the dtype's
+    maximum, the JAX padding sentinel, the rest 7 values), "uniform", or
+    "constant"."""
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(dtype).max
+    if kind == "uniform":
+        return rng.integers(0, int(hi), size=n, dtype=dtype, endpoint=True)
+    if kind == "constant":
+        return np.full(n, 0x5A, dtype=dtype)
+    keys = rng.integers(0, 13 if kind == "ties" else 7, size=n).astype(dtype)
+    keys *= dtype(0x01010101 if dtype == np.uint32 else 0x0101010101010101)
+    if kind == "max":
+        keys[rng.random(n) < 0.2] = hi
+    return keys
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _eq(got, want) -> None:
+    """Bitwise equality of a tensor and an array of the same width."""
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(common.bits_view(got).numpy().view(want.dtype), want)
+
+
+def _eq_counts(got, want) -> None:
+    """Equal integers; JAX's cumsum widens int32 to int64 under x64."""
+    want = np.asarray(want)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# digit helpers and the reference oracle (plain jnp on the JAX side)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_digit_helpers_match_jax(dtype):
+    keys = _keys(1, 1000, dtype, "uniform")
+    tdtype = torch.uint32 if dtype == np.uint32 else torch.uint64
+    assert common.num_passes(tdtype) == jcommon.num_passes(dtype)
+    assert (common.BITS_PER_PASS, common.NUM_BINS) == (jcommon.BITS_PER_PASS, jcommon.NUM_BINS)
+    for shift in range(0, 8 * np.dtype(dtype).itemsize, 8):
+        got = common.extract_digit(_t(keys), shift)
+        assert got.dtype == torch.int32
+        _eq(got, jcommon.extract_digit(jnp.asarray(keys), shift))
+
+
+@pytest.mark.parametrize("dtype,kind", [(np.uint32, "ties"), (np.uint64, "max"),
+                                        (np.uint32, "uniform")])
+@pytest.mark.parametrize("num_chunks", [1, 4])
+def test_reference_phases_match_jax(dtype, kind, num_chunks):
+    n = 4096
+    keys = _keys(2, n, dtype, kind)
+    vals = np.arange(n, dtype=np.uint32)
+    for shift in (0, 8 * np.dtype(dtype).itemsize - 8):
+        hist = reference.chunk_histograms(_t(keys), shift, num_chunks)
+        jhist = jreference.chunk_histograms(jnp.asarray(keys), shift, num_chunks)
+        _eq_counts(hist, jhist)
+        _eq_counts(reference.exclusive_bin_offsets(hist), jreference.exclusive_bin_offsets(jhist))
+        digits = common.extract_digit(_t(keys), shift).view(num_chunks, -1)
+        jdigits = jcommon.extract_digit(jnp.asarray(keys), shift).reshape(num_chunks, -1)
+        _eq_counts(reference.rank_in_chunk(digits), jreference.rank_in_chunk(jdigits))
+        ok, ov = reference.radix_pass(_t(keys), _t(vals), shift, num_chunks)
+        jk, jv = jreference.radix_pass(jnp.asarray(keys), jnp.asarray(vals), shift, num_chunks)
+        _eq(ok, jk)
+        _eq(ov, jv)
+        ok, none = reference.radix_pass(_t(keys), None, shift, num_chunks)
+        assert none is None
+        _eq(ok, jk)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int64, np.float64])
+def test_reference_sorts_match_jax(dtype):
+    rng = np.random.default_rng(3)
+    keys = (rng.standard_normal(2500) * 50).round().astype(dtype)
+    vals = rng.standard_normal(2500).astype(np.float32)
+    _eq(reference.radix_sort_reference(_t(keys)),
+        jreference.radix_sort_reference(jnp.asarray(keys)))
+    ok, ov = reference.radix_sort_reference(_t(keys), _t(vals), num_chunks=5)
+    jk, jv = jreference.radix_sort_reference(jnp.asarray(keys), jnp.asarray(vals), num_chunks=5)
+    _eq(ok, jk)
+    _eq(ov, jv)
+    perm = reference.argsort_reference(_t(keys))
+    assert perm.dtype == torch.uint32
+    _eq(perm, jreference.argsort_reference(jnp.asarray(keys)))
+
+
+def test_chunk_histograms_need_whole_chunks():
+    with pytest.raises(ValueError, match="divide"):
+        reference.chunk_histograms(_t(np.zeros(10, np.uint32)), 0, 3)
+
+
+# ---------------------------------------------------------------------------
+# the histogram kernel's wrapper against the JAX kernel (interpret mode)
+
+HIST_CASES = [
+    (np.uint32, 5000, 0, "ties"),
+    (np.uint32, 5000, 24, "max"),
+    (np.uint64, 4097, 8, "max"),
+    (np.uint64, 4097, 40, "uniform"),
+    (np.uint64, 4097, 56, "ties"),
+    (np.uint32, TILE, 16, "constant"),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_histograms():
+    """JAX ``tile_histograms`` in interpret mode for every case, trimmed to
+    the real tiles with the sentinel padding taken off bin 255 of the last
+    real tile (the JAX kernel pads to 8 tiles with dtype-max keys)."""
+    out = {}
+    for dtype, n, shift, kind in HIST_CASES:
+        keys = _keys(n + shift, n, dtype, kind)
+        hist = np.asarray(jhistogram.tile_histograms(jnp.asarray(keys), shift, tile=TILE,
+                                                     interpret=True))
+        nt = -(-n // TILE)
+        hist = hist[:nt].copy()
+        hist[nt - 1, 255] -= nt * TILE - n
+        out[(dtype, n, shift, kind)] = (keys, hist)
+    return out
+
+
+@pytest.mark.parametrize("case", HIST_CASES, ids=lambda c: f"{c[0].__name__}-{c[1]}-{c[2]}-{c[3]}")
+def test_tile_histograms_match_jax(jax_histograms, case):
+    keys, want = jax_histograms[case]
+    before = histogram.tile_histograms.launches
+    got = histogram.tile_histograms(_t(keys), case[2], TILE)
+    assert got.dtype == torch.int32
+    _eq(got, want)
+    assert histogram.tile_histograms.launches == before  # CPU: the plain version
+
+
+def test_tile_histograms_plain_at_other_tiles():
+    keys = _keys(4, 3000, np.uint32, "ties")
+    for tile in (1, 7, 128, 4096):
+        got = histogram.tile_histograms(_t(keys), 8, tile).numpy()
+        nt = -(-keys.size // tile)
+        digits = (keys >> 8) & 255
+        want = np.zeros((nt, 256), np.int32)
+        np.add.at(want, (np.arange(keys.size) // tile, digits), 1)
+        np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the destination kernel's wrapper against the JAX kernel (interpret mode)
+
+DEST_CASES = [
+    (np.uint32, 5000, 8, "ties"),
+    (np.uint32, TILE, 0, "constant"),
+    (np.uint64, 4097, 48, "max"),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_destinations():
+    out = {}
+    for dtype, n, shift, kind in DEST_CASES:
+        keys = _keys(7 * n + shift, n, dtype, kind)
+        dest = jradix_tiled.pass_destinations(jnp.asarray(keys), shift, tile=TILE,
+                                              interpret=True)
+        out[(dtype, n, shift, kind)] = (keys, np.asarray(dest))
+    return out
+
+
+@pytest.mark.parametrize("case", DEST_CASES, ids=lambda c: f"{c[0].__name__}-{c[1]}-{c[2]}-{c[3]}")
+def test_pass_destinations_match_jax(jax_destinations, case):
+    keys, want = jax_destinations[case]
+    before = radix_tiled.tile_destinations.launches
+    got = radix_tiled.pass_destinations(_t(keys), case[2], TILE)
+    assert got.dtype == torch.int32
+    _eq(got, want)
+    _eq(radix_tiled.pass_destinations_plain(_t(keys), case[2], TILE), want)
+    assert radix_tiled.tile_destinations.launches == before
+
+
+@pytest.mark.parametrize("tile", [1, 32, 100, 4096])
+def test_destinations_are_the_stable_permutation(tile):
+    # at any tile, one pass's destinations are the inverse of the stable
+    # argsort of its digit
+    keys = _keys(5, 2500, np.uint64, "max")
+    shift = 56
+    dest = radix_tiled.pass_destinations(_t(keys), shift, tile).numpy()
+    order = np.argsort((keys >> np.uint64(shift)) & np.uint64(255), kind="stable")
+    np.testing.assert_array_equal(dest[order], np.arange(keys.size))
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's wrapper against the JAX kernel (interpret mode)
+
+FUSED_CASES = [
+    (np.uint32, 3000, np.uint32, "ties"),
+    (np.uint64, 2000, np.uint64, "max"),
+    (np.uint32, 1500, np.float32, "uniform"),
+    (np.uint64, 1000, None, "ties"),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_fused():
+    out = {}
+    for i, (kdt, n, vdt, kind) in enumerate(FUSED_CASES):
+        keys = _keys(100 + i, n, kdt, kind)
+        rng = np.random.default_rng(i)
+        vals = {None: None, np.uint32: np.arange(n, dtype=np.uint32),
+                np.uint64: rng.integers(0, 2**64, size=n, dtype=np.uint64),
+                np.float32: rng.standard_normal(n).astype(np.float32)}[vdt]
+        jk, jv = jfused.sort_fused(jnp.asarray(keys), None if vals is None else jnp.asarray(vals),
+                                   JaxSortConfig(interpret=True))
+        out[i] = (keys, vals, np.asarray(jk), None if jv is None else np.asarray(jv))
+    return out
+
+
+@pytest.mark.parametrize("i", range(len(FUSED_CASES)),
+                         ids=[f"{c[0].__name__}-{c[1]}-{getattr(c[2], '__name__', None)}-{c[3]}"
+                              for c in FUSED_CASES])
+def test_sort_fused_matches_jax(jax_fused, i):
+    keys, vals, jk, jv = jax_fused[i]
+    before = fused.sort_fused.launches
+    tk = _t(keys)
+    tv = None if vals is None else _t(vals)
+    ok, ov = fused.sort_fused(tk, tv, vt.SortConfig())
+    _eq(ok, jk)
+    if vals is None:
+        assert ov is None
+    else:
+        _eq(ov, jv)
+        _eq(tv, vals)  # the input is not written
+    _eq(tk, keys)
+    assert fused.sort_fused.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the slice: the public API through the three engines
+
+
+def _slice_keys(dtype, kind="ties"):
+    return _keys(11, N_SLICE, dtype, kind)
+
+
+@pytest.fixture(scope="module")
+def jax_radix_tiled_slice():
+    """The JAX radix_tiled engine in interpret mode, at one size and key
+    width (one compile of each kernel per pass): u32 kv in both directions,
+    f32 argsort, i32 keys-only. 64-bit keys meet the JAX engine in the
+    destination cases above and JAX's reference below."""
+    k32 = _slice_keys(np.uint32)
+    v32 = np.arange(N_SLICE, dtype=np.uint32)
+    f32 = (np.random.default_rng(12).standard_normal(N_SLICE) * 10).round().astype(np.float32)
+    i32 = _slice_keys(np.uint32, "max").view(np.int32)
+    out = {}
+    for desc in (False, True):
+        jk, jv = vk.sort_pairs(jnp.asarray(k32), jnp.asarray(v32), config=JCFG,
+                               backend="radix_tiled", descending=desc)
+        out[("kv32", desc)] = ((k32, v32), (np.asarray(jk), np.asarray(jv)))
+    out["argsort_f32"] = (f32, np.asarray(vk.argsort(jnp.asarray(f32), config=JCFG,
+                                                      backend="radix_tiled")))
+    out["sort_i32"] = (i32, np.asarray(vk.sort(jnp.asarray(i32), config=JCFG,
+                                                backend="radix_tiled", descending=True)))
+    return out
+
+
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
+def test_slice_matches_jax_radix_tiled(jax_radix_tiled_slice, backend):
+    # fused and reference give the same stable answer as JAX's radix_tiled
+    cfg = vt.SortConfig(chunk=TILE)
+    res = jax_radix_tiled_slice
+    for desc in (False, True):
+        (k, v), (jk, jv) = res[("kv32", desc)]
+        ok, ov = vt.sort_pairs(_t(k), _t(v), config=cfg, backend=backend, descending=desc)
+        _eq(ok, jk)
+        _eq(ov, jv)
+    f32, jperm = res["argsort_f32"]
+    perm = vt.argsort(_t(f32), config=cfg, backend=backend)
+    assert perm.dtype == torch.uint32
+    _eq(perm, jperm)
+    i32, jsorted = res["sort_i32"]
+    _eq(vt.sort(_t(i32), config=cfg, backend=backend, descending=True), jsorted)
+
+
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
+@pytest.mark.parametrize("key_dtype,val_dtype", [(np.float32, np.float32), (np.int32, np.uint64),
+                                                 (np.float64, np.int64), (np.uint64, np.uint64)])
+def test_slice_matches_jax_reference(backend, key_dtype, val_dtype):
+    rng = np.random.default_rng(21)
+    n = 2777
+    keys = (rng.standard_normal(n) * 30).round().astype(key_dtype)
+    vals = rng.integers(-(2**31), 2**31, size=n).astype(val_dtype)
+    for desc in (False, True):
+        ok, ov = vt.sort_pairs(_t(keys), _t(vals), config=vt.SortConfig(chunk=512),
+                               backend=backend, descending=desc)
+        jk, jv = vk.sort_pairs(jnp.asarray(keys), jnp.asarray(vals), backend="reference",
+                               descending=desc)
+        _eq(ok, jk)
+        _eq(ov, jv)
+        _eq(vt.sort(_t(keys), backend=backend, descending=desc),
+            vk.sort(jnp.asarray(keys), backend="reference", descending=desc))
+
+
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
+@pytest.mark.parametrize("n", [0, 1])
+def test_slice_tiny_inputs(backend, n):
+    keys = np.arange(n, dtype=np.uint32)[::-1].copy()
+    vals = np.arange(n, dtype=np.float32)
+    ok, ov = vt.sort_pairs(_t(keys), _t(vals), backend=backend)
+    jk, jv = vk.sort_pairs(jnp.asarray(keys), jnp.asarray(vals), backend="reference")
+    _eq(ok, jk)
+    _eq(ov, jv)
+    _eq(vt.argsort(_t(keys), backend=backend), vk.argsort(jnp.asarray(keys), backend="reference"))
+
+
+def test_reference_backend_carries_many_payloads():
+    rng = np.random.default_rng(31)
+    n = 1500
+    keys = rng.integers(0, 40, size=n).astype(np.uint64)
+    vals = (rng.standard_normal(n).astype(np.float32), np.arange(n, dtype=np.int64),
+            rng.integers(0, 255, size=n).astype(np.uint8))
+    ok, ov = vt.sort_pairs(_t(keys), tuple(_t(v) for v in vals), backend="reference")
+    jk, jv = vk.sort_pairs(jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals),
+                           backend="reference")
+    assert isinstance(ov, tuple)
+    _eq(ok, jk)
+    for o, j in zip(ov, jv):
+        _eq(o, j)
+
+
+# ---------------------------------------------------------------------------
+# refusals
+
+
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused"])
+def test_one_payload_engines_refuse_two(backend):
+    k = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="single payload"):
+        vt.sort_pairs(k, (k, k), backend=backend)
+
+
+def test_fused_refuses_more_than_fused_max_n():
+    cfg = vt.SortConfig()
+    assert cfg.fused_max_n == JaxSortConfig().fused_max_n == 1 << 15
+    assert cfg.chunk == JaxSortConfig().chunk == TILE
+    with pytest.raises(ValueError, match="fused_max_n"):
+        vt.sort(torch.zeros(cfg.fused_max_n + 1, dtype=torch.int32), backend="fused")
+    with pytest.raises(ValueError, match="fused_max_n"):
+        vt.sort(torch.zeros(101, dtype=torch.int32), backend="fused",
+                config=cfg.replace(fused_max_n=100))
+    out = vt.sort(torch.arange(101, 0, -1, dtype=torch.int32), backend="fused",
+                  config=cfg.replace(fused_max_n=101))
+    np.testing.assert_array_equal(out.numpy(), np.arange(1, 102))
+    with pytest.raises(TypeError, match="4- or 8-byte"):
+        vt.sort_pairs(torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int16),
+                      backend="fused")
+
+
+def test_radix_tiled_refuses_n_of_2_pow_31():
+    # a stride-0 view stands in for 2^31 keys without allocating them
+    big = torch.zeros(1, dtype=torch.int32).view(torch.uint32).expand(1 << 31)
+    base = torch.zeros((1, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^31"):
+        radix_tiled.pass_destinations(big, 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        radix_tiled.tile_destinations(big, 0, TILE, base)
+    with pytest.raises(ValueError, match="2\\^31"):
+        radix_tiled.sort_radix_tiled(big)
+
+
+def test_radix_wrappers_reject_what_the_kernels_do_not_take():
+    k = torch.zeros(8, dtype=torch.int32).view(torch.uint32)
+    with pytest.raises(TypeError):
+        histogram.tile_histograms(torch.zeros(8, dtype=torch.int32), 0)
+    with pytest.raises(ValueError):
+        histogram.tile_histograms(k, 32)  # past the key's width
+    with pytest.raises(ValueError):
+        radix_tiled.tile_destinations(k, 0, 4, torch.zeros((3, 256), dtype=torch.int32))
+    meta = torch.zeros(8, dtype=torch.int32, device="meta").view(torch.uint32)
+    with pytest.raises(ValueError, match="CUDA"):
+        histogram.tile_histograms(meta, 0)  # neither the CPU's plain version nor a kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.sort_fused(meta)
+    with pytest.raises(TypeError):
+        fused.sort_fused(torch.zeros(8, dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# the port imports neither JAX nor the JAX package
+
+
+def _imported_modules(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((ROOT / "vkradixsort_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert any(f.name == "radix_tiled.py" for f in files)
+    for f in files:
+        for name in _imported_modules(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "vkradixsort_tpu"), (f, name)
+
+
+def test_port_import_loads_no_jax():
+    mods = ["vkradixsort_tpu_torch"] + [
+        f"vkradixsort_tpu_torch.ops.{p.stem}"
+        for p in sorted((ROOT / "vkradixsort_tpu_torch" / "ops").glob("*.py"))
+        if p.stem != "__init__"
+    ]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in mods)
+        + "bad = [m for m in sys.modules\n"
+        + "       if m.split('.')[0] in ('jax', 'jaxlib', 'vkradixsort_tpu')]\n"
+        + "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -9,7 +9,9 @@ It imports ``torch`` and never ``jax``. Public API, as in the JAX package:
     sort_segments(keys_2d)      -> every row sorted
 
 The stable key-value sort of large inputs on a CUDA tensor runs the merge
-engine's hand-written kernels (``csrc/``), built with ``nvcc`` at first use.
+engine's hand-written kernels (``csrc/``), built with ``nvcc`` at first use;
+``backend="radix_tiled"`` and ``backend="fused"`` run the radix engines'
+kernels, and ``backend="reference"`` the plain radix sort.
 """
 
 from vkradixsort_tpu_torch.engine.config import SortConfig

@@ -15,12 +15,22 @@ class SortConfig:
     """Knobs for the sort pipelines.
 
     Attributes:
+      fused_max_n: largest N the fused one-block radix kernel accepts when
+        it is selected (``backend="fused"``), the analog of the reference's
+        single-workgroup regime (VkRadixSort recommends it below about 10k
+        keys). One block runs every pass, so the time grows linearly with
+        N on one SM; above this dispatch raises.
+      chunk: elements per tile of the radix_tiled pipeline: each histogram
+        row and each block of the destination kernel covers ``chunk``
+        consecutive keys.
       tile: elements per tile of the merge engine's tile-sort kernel (a power
         of two). ``None`` (default) takes the largest tile whose key and
         position planes fit shared memory twice over on one SM, so two
         tile-sort blocks share each SM (``ops/merge.default_tile``).
     """
 
+    fused_max_n: int = 1 << 15
+    chunk: int = 2048
     tile: int | None = None
 
     def replace(self, **kw) -> "SortConfig":

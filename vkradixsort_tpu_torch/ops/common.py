@@ -19,6 +19,23 @@ _MIN32 = -(1 << 31)  # 0x80000000 as an int32 scalar
 _MIN64 = -(1 << 63)  # 0x8000000000000000 as an int64 scalar
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
+# Radix configuration of the radix engines: 8-bit digits, 256 bins; 4 LSD
+# passes for 32-bit keys, 8 for 64-bit.
+BITS_PER_PASS = 8
+NUM_BINS = 1 << BITS_PER_PASS
+
+
+def num_passes(dtype: torch.dtype) -> int:
+    """Number of 8-bit LSD passes for a sortable unsigned dtype."""
+    return dtype.itemsize * 8 // BITS_PER_PASS
+
+
+def extract_digit(keys: torch.Tensor, shift: int) -> torch.Tensor:
+    """``(key >> shift) & 0xFF`` as int32, for keys of any integer dtype.
+    The shift runs on the signed view: the mask drops the bits an arithmetic
+    shift brings in."""
+    return ((bits_view(keys) >> shift) & (NUM_BINS - 1)).to(torch.int32)
+
 
 def sortable_dtype(dtype: torch.dtype) -> torch.dtype:
     """The unsigned dtype whose ascending order realizes ``dtype``'s order."""
@@ -109,6 +126,14 @@ def bits_view(x: torch.Tensor) -> torch.Tensor:
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` for any dtype (CUDA has no indexing of unsigned dtypes)."""
     return bits_view(x)[idx].view(x.dtype)
+
+
+def positions(n: int, device) -> torch.Tensor:
+    """0..n-1 as uint32 (uint64 from 2^32 on), like the JAX argsort."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if n < 1 << 32:
+        return idx.to(torch.int32).view(torch.uint32)
+    return idx.view(torch.uint64)
 
 
 def round_up(x: int, m: int) -> int:

@@ -1,17 +1,24 @@
 """Public sort API: ``sort``, ``sort_pairs``, ``argsort``, ``sort_segments``.
 
-Port of ``vkradixsort_tpu/ops/dispatch.py``. Two engines so far:
+Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
 
-  engine    what runs
-  --------  -----------------------------------------------------------------
-  "tiled"   ``torch.sort(stable=True)`` in sign-flipped int space
-            (ops/tiled.py); every device, every dtype
-  "merge"   tile-sort + merge-path ladder (ops/merge.py): hand-written CUDA
-            kernels on CUDA tensors, their plain versions on CPU tensors
+  engine         what runs
+  -------------  ------------------------------------------------------------
+  "tiled"        ``torch.sort(stable=True)`` in sign-flipped int space
+                 (ops/tiled.py); every device, every dtype
+  "merge"        tile-sort + merge-path ladder (ops/merge.py)
+  "radix_tiled"  per-pass histogram, scan, destinations and scatter
+                 (ops/radix_tiled.py); at most one payload
+  "fused"        the whole LSD radix sort in one launch of one block
+                 (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
+                 one payload of 4 or 8 bytes
+  "reference"    the plain radix sort (ops/reference.py); any payloads
 
+The merge, radix_tiled and fused engines launch hand-written CUDA kernels
+on CUDA tensors and run their plain versions on CPU tensors.
 ``backend=None`` decides from the tensor, up front: CUDA tensors follow
-``engine/config.ROUTE_TABLE``; CPU tensors take "tiled" (``backend="merge"``
-runs the merge engine's plain versions there). Every entry point is stable
+``engine/config.ROUTE_TABLE``; CPU tensors take "tiled". No default route
+leads to radix_tiled, fused or reference yet. Every entry point is stable
 and bitwise-exact against the JAX package on the same inputs.
 """
 
@@ -20,15 +27,17 @@ from __future__ import annotations
 import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig, route_for
-from vkradixsort_tpu_torch.ops import merge, segsort, tiled
+from vkradixsort_tpu_torch.ops import fused, merge, radix_tiled, reference, segsort, tiled
 from vkradixsort_tpu_torch.ops.common import (
     complement,
     decode_keys,
     encode_keys,
+    positions,
     sortable_dtype,
+    take,
 )
 
-ENGINES = ("tiled", "merge")
+ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference")
 
 
 def _route(keys: torch.Tensor, backend: str | None, op: str, vals: tuple = ()) -> str:
@@ -51,7 +60,32 @@ def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str)
         return tiled.sort_tiled(enc, vals)
     if path == "merge":
         return merge.sort_merge(enc, vals, tile=config.tile)
+    if path == "radix_tiled":
+        _only_one_payload(path, vals)
+        out_k, out_v = radix_tiled.sort_radix_tiled(enc, vals[0] if vals else None,
+                                                    tile=config.chunk)
+        return out_k, (out_v,) if vals else ()
+    if path == "fused":
+        _only_one_payload(path, vals)
+        out_k, out_v = fused.sort_fused(enc, vals[0] if vals else None, config)
+        return out_k, (out_v,) if vals else ()
+    if path == "reference":
+        if len(vals) <= 1:
+            out_k, out_v = reference._sort_encoded(enc, vals[0] if vals else None)
+            return out_k, (out_v,) if vals else ()
+        # several payloads: one sort carrying the positions, then a gather
+        out_k, perm = reference._sort_encoded(enc, torch.arange(enc.shape[0], device=enc.device))
+        return out_k, tuple(take(v, perm) for v in vals)
     raise ValueError(f"unknown sort path {path!r}")
+
+
+def _only_one_payload(path: str, vals: tuple) -> None:
+    if len(vals) > 1:
+        raise NotImplementedError(
+            f"engine {path!r} moves a single payload plane; pass one values "
+            "tensor, or use the 'tiled'/'merge'/'reference' engines for "
+            "multi-payload sorts"
+        )
 
 
 def _sort_encoded_keys(keys, vals, config, path, descending):
@@ -125,14 +159,6 @@ def sort_pairs(
     return out_k, (type(values)(out_vs) if multi else out_vs[0])
 
 
-def _positions(n: int, device) -> torch.Tensor:
-    """0..n-1 as uint32 (uint64 from 2^32 on), like the JAX argsort."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    if n < 1 << 32:
-        return idx.to(torch.int32).view(torch.uint32)
-    return idx.view(torch.uint64)
-
-
 def argsort(
     keys: torch.Tensor,
     *,
@@ -146,12 +172,12 @@ def argsort(
         if backend is not None:
             raise ValueError("2-D keys route to sort_segments; backend= does not apply")
         rows, cols = keys.shape
-        idx = _positions(cols, keys.device).expand(rows, cols)
+        idx = positions(cols, keys.device).expand(rows, cols)
         _, perm = sort_segments(keys, idx, descending=descending)
         return perm
     if keys.dim() != 1:
         raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
-    idx = _positions(keys.shape[0], keys.device)
+    idx = positions(keys.shape[0], keys.device)
     _, perm = sort_pairs(keys, idx, config=config, backend=backend, descending=descending)
     return perm
 

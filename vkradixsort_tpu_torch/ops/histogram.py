@@ -1,0 +1,68 @@
+"""Per-tile 256-bin digit histograms: one radix pass's counting step.
+
+Port of ``vkradixsort_tpu/ops/histogram.py``. ``tile_histograms`` launches
+the CUDA kernel ``csrc/histogram.cu`` on a CUDA tensor and runs its plain
+version ``tile_histograms_plain`` (one ``bincount``) on a CPU tensor.
+
+The JAX kernel padded the keys to 8 tiles (a Mosaic block-shape artifact)
+with dtype-max sentinels, which landed in bin 255 of the last tiles. Here the
+table has exactly ``cdiv(n, tile)`` rows and counts only real elements.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
+from vkradixsort_tpu_torch.ops import kernels, reference
+from vkradixsort_tpu_torch.ops.common import NUM_BINS, cdiv, extract_digit
+
+
+def check_digit_input(enc: torch.Tensor, shift: int, tile: int) -> None:
+    """Raise on what the radix kernels do not take."""
+    if enc.dtype not in (torch.uint32, torch.uint64) or enc.dim() != 1:
+        raise TypeError(f"radix kernels take 1-D uint32/uint64 keys, got {enc.dtype} "
+                        f"{tuple(enc.shape)}")
+    if not 0 <= shift < 8 * enc.element_size() or tile < 1:
+        raise ValueError(f"bad shift {shift} or tile {tile} for {enc.dtype} keys")
+
+
+def digit_half(enc: torch.Tensor, shift: int):
+    """The 32-bit half of each key that holds digit ``shift``, as a strided
+    int32 view of contiguous CUDA keys (no copy), and the shift within it:
+    ``(x, stride, shift)``. Raises on what the kernels do not take."""
+    if enc.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc.device}")
+    if not enc.is_contiguous():
+        raise ValueError("the radix kernels take contiguous keys")
+    if enc.dtype == torch.uint32:
+        return enc.view(torch.int32), 1, shift
+    halves = enc.view(torch.int32)  # little-endian: low half first
+    return (halves[0::2], 2, shift) if shift < 32 else (halves[1::2], 2, shift - 32)
+
+
+def tile_histograms_plain(enc: torch.Tensor, shift: int,
+                          tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+    """Plain version of the histogram kernel: one ``bincount`` over
+    ``tile_id * 256 + digit``."""
+    return reference.digit_counts(extract_digit(enc, shift), tile)
+
+
+def tile_histograms(enc: torch.Tensor, shift: int,
+                    tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+    """``[cdiv(n, tile), 256]`` int32 counts of the digit
+    ``(enc >> shift) & 0xFF`` in every ``tile`` consecutive keys (the last
+    tile may be short). ``enc``: uint32 or uint64 encoded keys."""
+    check_digit_input(enc, shift, tile)
+    if enc.device.type == "cpu":
+        return tile_histograms_plain(enc, shift, tile)
+    x, stride, sh = digit_half(enc, shift)
+    n = enc.shape[0]
+    out = torch.empty((cdiv(n, tile), NUM_BINS), dtype=torch.int32, device=enc.device)
+    if n:
+        kernels.call("histogram", enc.device, x.data_ptr(), n, stride, sh, tile, out.data_ptr())
+        tile_histograms.launches += 1
+    return out
+
+
+tile_histograms.launches = 0

@@ -1,10 +1,11 @@
-"""Build and bind the merge engine's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source under ``csrc/`` for sm_90a into
-one shared library with a plain C interface, under ``build/kernels/`` at the
-root of the checkout, named by a hash of the sources and the flags; ``ctypes``
-loads it. Nothing here runs at import, and nothing falls back: a missing
-``nvcc``, a failed build or a failed launch raises.
+At first use, ``nvcc`` compiles every source under ``csrc/`` for sm_90a, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, under ``build/kernels/`` at the
+root of the checkout, named by a hash of the sources and the flags;
+``ctypes`` loads it. Nothing here runs at import, and nothing falls back: a
+missing ``nvcc``, a failed build or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -22,10 +23,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VOIDP4 = ctypes.c_void_p * 4
 
 
@@ -44,7 +43,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode() + b"\0" + p.read_bytes())
     return BUILD_DIR / f"libvkrs_kernels_{h.hexdigest()[:16]}.so"
@@ -58,15 +57,28 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        jobs = []
+        for src in _sources():
+            obj = pathlib.Path(td) / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:  # wait for every compiler before raising
+            report = proc.communicate()[0]
+            log.append(f"$ {' '.join(cmd)}\n{report}")
+            if proc.returncode != 0:
+                failed.append(log[-1])
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         tmp = pathlib.Path(td) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-            )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            raise RuntimeError(f"kernel link failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text("\n".join(log))
         os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 
@@ -75,34 +87,51 @@ def build() -> pathlib.Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    planes = [ctypes.c_int, _VOIDP4, _VOIDP4, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-    lib.vkrs_tilesort.argtypes = planes + [ctypes.c_int, ctypes.c_void_p]
-    lib.vkrs_tilesort.restype = ctypes.c_int
-    lib.vkrs_mergepath.argtypes = planes + [ctypes.c_longlong, ctypes.c_void_p]
-    lib.vkrs_mergepath.restype = ctypes.c_int
-    lib.vkrs_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    planes = [_VOIDP4, _VOIDP4, i32, i32, i64]
+    # the arguments between the device (first) and the stream (last)
+    signatures = {
+        "tilesort": planes + [i32],
+        "mergepath": planes + [i64],
+        "histogram": [ptr, i64, i32, i32, i32, ptr],
+        "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
+        "fused": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, f"vkrs_{name}")
+        fn.argtypes = [i32, *args, ptr]
+        fn.restype = i32
+    lib.vkrs_error_string.argtypes = [i32]
     lib.vkrs_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch(name: str, ins: list, outs: list, nck: int, *scalars) -> None:
-    """Launch ``vkrs_<name>`` on the current stream of the planes' device.
-
-    ``ins``/``outs`` are equal-length lists of contiguous CUDA int32 tensors
-    on one device (the caller checks that), compare planes first; the
-    kernel's scalars follow the plane counts. Raises if the launch fails."""
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch ``vkrs_<name>(device, *args, stream)`` on the current stream of
+    ``device``; pointers are passed as ints (``tensor.data_ptr()``). The
+    caller checks devices, dtypes and shapes. Raises if the launch fails."""
     lib = load()
-    device = ins[0].device
     err = getattr(lib, f"vkrs_{name}")(
-        device.index,
-        _VOIDP4(*(t.data_ptr() for t in ins)),
-        _VOIDP4(*(t.data_ptr() for t in outs)),
-        nck,
-        len(ins) - nck,
-        *scalars,
-        torch.cuda.current_stream(device).cuda_stream,
+        device.index, *args, torch.cuda.current_stream(device).cuda_stream
     )
     if err != 0:
         raise RuntimeError(
             f"vkrs_{name} failed: {lib.vkrs_error_string(err).decode()} (cudaError {err})"
         )
+
+
+def launch(name: str, ins: list, outs: list, nck: int, *scalars) -> None:
+    """Launch the merge engine's ``vkrs_<name>`` on plane bundles.
+
+    ``ins``/``outs`` are equal-length lists of contiguous CUDA int32 tensors
+    on one device (the caller checks that), compare planes first; the
+    kernel's scalars follow the plane counts. Raises if the launch fails."""
+    call(
+        name,
+        ins[0].device,
+        _VOIDP4(*(t.data_ptr() for t in ins)),
+        _VOIDP4(*(t.data_ptr() for t in outs)),
+        nck,
+        len(ins) - nck,
+        *scalars,
+    )

@@ -1,0 +1,122 @@
+"""The explicit multi-pass radix pipeline: VkRadixSort's multi_radixsort.
+
+Port of ``vkradixsort_tpu/ops/radix_tiled.py``. Per 8-bit digit pass, as
+the reference's two shaders per pass do:
+
+  1. ``histogram.tile_histograms``: per-tile digit counts (kernel
+     ``csrc/histogram.cu``);
+  2. ``reference.exclusive_bin_offsets``: the global scan of the
+     ``[num_tiles, 256]`` table, in torch (XLA did it in the JAX package);
+  3. ``tile_destinations``: each element's destination, its tile's base for
+     its digit plus its stable rank among equal digits of the tile (kernel
+     ``csrc/radix_dest.cu``);
+  4. the scatter of keys and payload to those destinations, in torch on
+     int32/int64 bit views, as the JAX package left it to XLA.
+
+Each kernel wrapper takes its plain version only for a CPU tensor. The
+destinations are int32, as in JAX, so the pipeline takes n < 2^31.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
+from vkradixsort_tpu_torch.ops import histogram, kernels, reference
+from vkradixsort_tpu_torch.ops.common import (
+    BITS_PER_PASS,
+    NUM_BINS,
+    cdiv,
+    extract_digit,
+    num_passes,
+)
+
+def _check_input(enc: torch.Tensor, shift: int, tile: int) -> None:
+    histogram.check_digit_input(enc, shift, tile)
+    if enc.shape[0] >= 1 << 31:
+        raise ValueError(
+            f"radix_tiled destinations are int32, so n must be below 2^31; got {enc.shape[0]}"
+        )
+
+
+def tile_destinations_plain(enc: torch.Tensor, shift: int, tile: int,
+                            base: torch.Tensor) -> torch.Tensor:
+    """Plain version of the destination kernel: ``base[tile, digit]`` plus
+    the stable in-tile rank, from a stable sort of each tile's digits (the
+    ragged last tile is padded with digit 256, which ranks after every real
+    digit)."""
+    n = enc.shape[0]
+    nt = cdiv(n, tile)
+    digits = extract_digit(enc, shift)
+    padded = torch.full((nt * tile,), NUM_BINS, dtype=torch.int32, device=enc.device)
+    padded[:n] = digits
+    rank = reference.rank_in_chunk(padded.view(nt, tile)).view(-1)[:n]
+    tile_id = torch.arange(n, device=enc.device) // tile
+    return base.reshape(-1)[tile_id * NUM_BINS + digits] + rank
+
+
+def tile_destinations(enc: torch.Tensor, shift: int, tile: int,
+                      base: torch.Tensor) -> torch.Tensor:
+    """int32 ``dest[i] = base[i // tile, d_i] + #(earlier j in the tile with
+    d_j = d_i)``, ``d_i = (enc[i] >> shift) & 0xFF``; ``base`` is the
+    ``[cdiv(n, tile), 256]`` int32 table of ``exclusive_bin_offsets``."""
+    _check_input(enc, shift, tile)
+    n = enc.shape[0]
+    if base.dtype != torch.int32 or tuple(base.shape) != (cdiv(n, tile), NUM_BINS):
+        raise ValueError(f"base must be [{cdiv(n, tile)}, {NUM_BINS}] int32, got "
+                         f"{base.dtype} {tuple(base.shape)}")
+    if enc.device.type == "cpu":
+        return tile_destinations_plain(enc, shift, tile, base)
+    x, stride, sh = histogram.digit_half(enc, shift)
+    if base.device != enc.device or not base.is_contiguous():
+        raise ValueError("base must be contiguous and on the keys' device")
+    dest = torch.empty(n, dtype=torch.int32, device=enc.device)
+    if n:
+        kernels.call("radix_dest", enc.device, x.data_ptr(), n, stride, sh, tile,
+                     base.data_ptr(), dest.data_ptr())
+        tile_destinations.launches += 1
+    return dest
+
+
+tile_destinations.launches = 0
+
+
+def pass_destinations_plain(enc: torch.Tensor, shift: int, tile: int = DEFAULT_CONFIG.chunk):
+    """Plain version of :func:`pass_destinations`: the plain histogram, the
+    scan, the plain destinations."""
+    base = reference.exclusive_bin_offsets(histogram.tile_histograms_plain(enc, shift, tile))
+    return tile_destinations_plain(enc, shift, tile, base)
+
+
+def pass_destinations(enc: torch.Tensor, shift: int,
+                      tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+    """Global int32 scatter destination of every element for the stable
+    pass over the digit ``(enc >> shift) & 0xFF``: histogram, scan,
+    destinations."""
+    _check_input(enc, shift, tile)
+    base = reference.exclusive_bin_offsets(histogram.tile_histograms(enc, shift, tile))
+    return tile_destinations(enc, shift, tile, base)
+
+
+def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = DEFAULT_CONFIG.chunk):
+    """One stable radix pass: destinations, then the scatter of the keys and
+    ``values`` (or None). The int32 destinations widen to int64 once per
+    pass, for torch's indexing."""
+    dest = pass_destinations(enc, shift, tile).to(torch.int64)
+    out_v = None if values is None else reference.scatter(values, dest)
+    return reference.scatter(enc, dest), out_v
+
+
+def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
+    """Full stable LSD sort of uint32/uint64 encoded keys through the tiled
+    pipeline, carrying one payload (or None): 4 passes for u32, 8 for u64.
+    Returns ``(sorted_keys, sorted_values)``; the inputs are not modified."""
+    _check_input(enc, 0, tile)
+    if values is not None and values.shape != enc.shape:
+        raise ValueError("values must have the keys' shape")
+    enc = enc.contiguous()
+    if enc.shape[0] <= 1:
+        return enc.clone(), None if values is None else values.clone()
+    for p in range(num_passes(enc.dtype)):
+        enc, values = radix_pass_tiled(enc, values, p * BITS_PER_PASS, tile)
+    return enc, values
