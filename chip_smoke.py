@@ -5,8 +5,9 @@
 Drives the port's main paths through the public entry points, in phases,
 one line each: the stable u32 key-value sort
 ``vkradixsort_tpu_torch.sort_pairs(keys, arange)`` on its default route (the
-merge engine), the same call on ``backend="radix_tiled"``, and the
-one-launch ``backend="fused"`` sort of a small array.
+merge engine), the same call on ``backend="radix_tiled"``, the one-launch
+``backend="fused"`` sort of a small array, and ``backend="bitonic"`` and
+``backend="samplesort"``.
 
   1. probe the card (``nvidia-smi`` name and power limit);
   2. build the kernels from the sources in this checkout;
@@ -27,15 +28,30 @@ one-launch ``backend="fused"`` sort of a small array.
      payload, one launch each, bitwise against numpy, and timed;
   7. at the merge path's shapes, 1e6 and 1e8 pairs: hold the tile sort and
      every merge level bitwise against their plain versions on the same
-     inputs and time both (CUDA events), and time the whole sort through
-     the merge, radix_tiled and ``torch.sort`` routes, in turns.
+     inputs and time both (CUDA events) and beside ``torch.sort`` of the
+     same tiles and run pairs, and time the whole sort through the merge,
+     radix_tiled and ``torch.sort`` routes, in turns;
+  8. the bitonic path: its kernels bitwise against their plain version on
+     ragged sizes below one tile, one tile, sizes that need global stages,
+     ties, dtype-max keys, u64 keys and several payloads; then
+     ``backend="bitonic"`` at its size contract (u32 keys at 2^22, stable
+     u32 kv at 1,398,101, u64 keys with a u64 payload at 838,860), bitwise
+     against numpy with every launch counted; the kernels timed at the kv
+     shape, and the whole sorts beside ``torch.sort`` in turns;
+  9. the samplesort path: the placement kernel bitwise against its plain
+     version on a small case and on the 1e8 kv sort's own rows, starts and
+     lengths, and timed there; a forced-overflow sort (the flat fallback);
+     ``backend="samplesort"`` kv and keys at 1e8 (exact on the device) and
+     u64 keys at 1e6 (bitwise against numpy), one placement launch each, so
+     no fallback; the whole sorts beside ``torch.sort`` in turns.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
 error against its plain version, its time, its plain version's time, the
-least time the card could take (``bound_ms``: bytes moved over 3.35 TB/s)
-and, where one PyTorch call computes the same function, that call's time,
-all summed over the launches of one main-path run. The last is the run's
+least time the card could take (``bound_ms``: the larger of the bytes moved
+over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
+where one PyTorch call computes the same function, that call's time, all
+summed over the launches of one main-path run. The last is the run's
 JSON result. Without a CUDA device, or without the package beside it, it
 exits non-zero and prints no result.
 """
@@ -52,16 +68,36 @@ import numpy as np
 import torch
 
 import vkradixsort_tpu_torch as vt
-from vkradixsort_tpu_torch.ops import fused, histogram, kernels, merge, radix_tiled, reference
-from vkradixsort_tpu_torch.ops.common import _MIN32, NUM_BINS, bits_view, cdiv, extract_digit
+from vkradixsort_tpu_torch.ops import (
+    bitonic,
+    fused,
+    histogram,
+    kernels,
+    merge,
+    radix_tiled,
+    reference,
+    samplesort,
+    segsort,
+)
+from vkradixsort_tpu_torch.ops.common import (
+    _MIN32,
+    NUM_BINS,
+    bits_view,
+    cdiv,
+    extract_digit,
+)
 from vkradixsort_tpu_torch.utils.timing import measure_seconds_per_call
 
 SEED = 0xBE7C
 N_SMALL = 1_000_000
 N_MAIN = 100_000_000
 N_FUSED = 1 << 15
+N_BITONIC_KEYS = 1 << 22  # the bitonic engine's size contract at one plane,
+N_BITONIC_KV = 1_398_101  # at three (stable u32 kv)
+N_BITONIC_KV64 = 838_860  # and at five (u64 keys, u64 payload)
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (data sheet)
 
 
 def phase(name: str, msg: str) -> None:
@@ -311,6 +347,299 @@ def fused_main_path(dev, rng, smi: str) -> tuple:
     return calls[0], st
 
 
+def in_turns(call, keys: torch.Tensor, backends: dict) -> dict:
+    """Device ms of ``call(backend)(keys)`` for each named backend, in turns:
+    in the order of ``backends``, then in reverse, each a median of REPS
+    calls on fresh remixes of the keys."""
+    order = list(backends.items())
+    times = {name: [] for name in backends}
+    for name, backend in order + order[::-1]:
+        times[name].append(measure_seconds_per_call(call(backend), keys, reps=REPS) * 1e3)
+    return times
+
+
+def bitonic_expected(n: int, nk: int, npayloads: int, dev) -> dict:
+    """Launches of one bitonic sort of n elements: one in-block launch and
+    one more per level above the tile, one global launch per (level, j >=
+    tile), one gather per payload."""
+    npad = bitonic._padded_size(n)
+    levels = (npad // min(merge.default_tile(nk, dev), npad)).bit_length() - 1
+    return {"block": 1 + levels, "global": levels * (levels + 1) // 2, "gather": npayloads}
+
+
+def bitonic_bound_ms(n: int, nk: int, key_bytes: int, payload_bytes: int) -> tuple:
+    """(bound ms, what bounds it) of one stable bitonic sort of n elements:
+    the larger of the bytes (keys and payloads read once and written once)
+    over 3.35 TB/s and the compare-exchanges' int32 plane compares (npad / 2
+    per stage, (nk + 1) planes) over 67 T/s."""
+    npad = bitonic._padded_size(n)
+    stages = npad.bit_length() - 1
+    stages = stages * (stages + 1) // 2
+    b_ms = bound_ms(2 * n * (key_bytes + payload_bytes))
+    o_ms = npad // 2 * stages * (nk + 1) / PLAIN_OPS_PER_S * 1e3
+    return (o_ms, "operations") if o_ms > b_ms else (b_ms, "bytes")
+
+
+def time_bitonic_parts(signed: torch.Tensor, values: torch.Tensor, dev) -> dict:
+    """Device ms of each part of one bitonic network on 1-D int32 keys
+    ``signed`` carrying ``values``, by CUDA events around every launch
+    (median of 5 after one untimed run): the first in-block launch, the
+    later in-block launches, the global stages and the gather, each summed."""
+    n = signed.shape[0]
+    npad = bitonic._padded_size(n)
+    tile = min(merge.default_tile(1, dev), npad)
+    runs = []
+    for _ in range(6):
+        work = torch.empty((2, npad), dtype=torch.int32, device=dev)
+        parts = {"first block": [], "later blocks": [], "global stages": [], "gather": []}
+
+        def timed(part, fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            parts[part].append((start, end))
+
+        timed("first block", lambda: bitonic.block_pass([signed], work, n, tile, 0))
+        k = 2 * tile
+        while k <= npad:
+            j = k // 2
+            while j >= tile:
+                timed("global stages", lambda: bitonic.global_stage(work, k, j))
+                j //= 2
+            timed("later blocks", lambda: bitonic.block_pass([], work, n, tile, k))
+            k *= 2
+        timed("gather", lambda: bitonic.gather_payload(values, work[1]))
+        runs.append(parts)
+    torch.cuda.synchronize()
+    return {part: statistics.median(sum(s.elapsed_time(e) for s, e in r[part]) for r in runs[1:])
+            for part in runs[0]}
+
+
+def compare_bitonic(dev, rng) -> int:
+    """The bitonic kernels against their plain version, bitwise: ragged
+    sizes below one tile, one tile exactly, sizes that need global stages;
+    heavy ties, keys equal to the dtype's maximum, u64 keys, 4- and 8-byte
+    payloads, several at once."""
+    tile = merge.default_tile(1, dev)
+    err = 0
+    for n, kdt, kind, vdts in [(100, np.uint32, "max", (np.uint32,)),
+                               (1000, np.uint64, "ties", ()),
+                               (tile, np.uint32, "ties", (np.uint32,)),
+                               (5 * tile + 3, np.uint64, "max", (np.uint64, np.float32)),
+                               (3 * tile + 1, np.uint32, "uniform",
+                                (np.uint64, np.uint32, np.float32)),
+                               ((1 << 20) + 1, np.uint32, "ties", (np.uint32,))]:
+        keys = segsort.to_signed_order(torch.from_numpy(radix_keys(rng, n, kdt, kind)).to(dev))
+        vals = tuple(torch.from_numpy(rng.integers(0, 2**63, size=n, dtype=np.uint64).astype(v))
+                     .to(dev) for v in vdts)
+        bitonic.reset_launch_counts()
+        ok, ov = bitonic.bitonic_sort_block(keys, vals)
+        torch.cuda.synchronize()
+        counts = bitonic.launch_counts()
+        want = bitonic_expected(n, keys.element_size() // 4, len(vals), dev)
+        pk, pv = bitonic.bitonic_sort_block_plain(keys, vals)
+        e = max_abs_err([ok, *ov], [pk, *pv])
+        err = max(err, e)
+        phase("compare", f"bitonic n={n} keys {np.dtype(kdt).name} {kind} payloads "
+                         f"{[np.dtype(v).name for v in vdts]}: max_abs_err {e}; launches {counts}")
+        if counts != want:
+            raise AssertionError(f"bitonic launches {counts}, expected {want}")
+    if err:
+        raise AssertionError(f"the bitonic kernels disagree with their plain version: {err}")
+    return err
+
+
+def bitonic_main_path(dev, rng, smi: str) -> tuple:
+    """The bitonic path at the engine's size contract, through the public
+    API: u32 keys at 2^22, stable u32 kv at 1,398,101, u64 keys with a u64
+    payload at 838,860, each bitwise against numpy with its launch counts;
+    then, at the kv shape, the kernels timed beside the plain version and
+    ``torch.sort`` plus the payload's gather, and the whole sorts beside
+    ``torch.sort`` in turns. Returns (launches of the kv run, stats)."""
+    runs = {}
+    for name, n, kdt, vdt in [("keys", N_BITONIC_KEYS, np.uint32, None),
+                              ("kv", N_BITONIC_KV, np.uint32, np.uint32),
+                              ("kv64", N_BITONIC_KV64, np.uint64, np.uint64)]:
+        keys = radix_keys(rng, n, kdt, "uniform") >> kdt(4)  # some ties
+        tk = torch.from_numpy(keys).to(dev)
+        vals = None
+        if vdt is not None:
+            vals = (np.arange(n, dtype=vdt) if vdt == np.uint32
+                    else rng.integers(0, 2**64, size=n, dtype=np.uint64))
+        torch.cuda.synchronize()
+        bitonic.reset_launch_counts()
+        if vals is None:
+            out = vt.sort(tk, backend="bitonic")
+        else:
+            ok, ov = vt.sort_pairs(tk, torch.from_numpy(vals).to(dev), backend="bitonic")
+        torch.cuda.synchronize()
+        counts = bitonic.launch_counts()
+        want = bitonic_expected(n, np.dtype(kdt).itemsize // 4, 0 if vals is None else 1, dev)
+        if vals is None:
+            if not np.array_equal(bits_view(out).cpu().numpy().view(kdt), np.sort(keys)):
+                raise AssertionError(f"bitonic sort of {n} keys disagrees with np.sort")
+        else:
+            check_numpy_kv(keys, vals, ok, ov, f"bitonic sort_pairs of {n}")
+        phase("slice", f"bitonic {name} n={n}: bitwise equal to numpy; launches {counts}, "
+                       f"expected {want}")
+        if counts != want:
+            raise AssertionError(f"the bitonic path did not run through its kernels: {counts}")
+        runs[name] = counts
+
+    signed = segsort.to_signed_order(random_u32(dev, N_BITONIC_KV, SEED + 3))
+    values = torch.arange(N_BITONIC_KV, dtype=torch.int32, device=dev)
+    got_k, got_v = bitonic.bitonic_sort_block(signed, (values,))
+    want_k, want_v = bitonic.bitonic_sort_block_plain(signed, (values,))
+    err = max_abs_err([got_k, *got_v], [want_k, *want_v])
+    if err:
+        raise AssertionError(f"bitonic kernels disagree with their plain version: {err}")
+
+    def library():
+        s, perm = torch.sort(signed, stable=True)
+        return s, values[perm]
+
+    st = {"ms": time_ms(lambda: bitonic.network([signed], [values]), reps=10),
+          "plain_ms": time_ms(lambda: bitonic.bitonic_sort_block_plain(signed, (values,)), reps=3),
+          "library_ms": time_ms(library, reps=10), "err": err}
+    st["bound_ms"], st["bound_by"] = bitonic_bound_ms(N_BITONIC_KV, 1, 4, 4)
+    phase("time", f"n={N_BITONIC_KV} stable u32 kv: bitonic kernels {st['ms']:.4f} ms (plain "
+                  f"{st['plain_ms']:.3f}, torch.sort + gather {st['library_ms']:.4f}, bound "
+                  f"{st['bound_ms']:.4f} by {st['bound_by']}); max_abs_err {err} [{smi}]")
+    st["parts"] = time_bitonic_parts(signed, values, dev)
+    phase("time", f"n={N_BITONIC_KV} stable u32 kv, bitonic launches by part (ms, summed): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in st["parts"].items()) + f" [{smi}]")
+    uvals = values.view(torch.uint32)
+    for what, n, call in [
+            ("sort_pairs", N_BITONIC_KV, lambda b: lambda k: vt.sort_pairs(k, uvals, backend=b)),
+            ("sort", N_BITONIC_KEYS, lambda b: lambda k: vt.sort(k, backend=b))]:
+        e2e = in_turns(call, random_u32(dev, n, SEED + 4),
+                       {"torch.sort": "tiled", "bitonic": "bitonic"})
+        st[f"e2e_{what}"] = e2e
+        for name, t in e2e.items():
+            phase("time", f"{what} n={n} u32 via {name}: {' / '.join(f'{x:.4f}' for x in t)} ms "
+                          f"[{smi}]")
+    return runs["kv"], st
+
+
+def samplesort_main_path(dev, rng, smi: str) -> tuple:
+    """The samplesort path: the placement kernel against its plain version
+    bitwise on a small ragged case and on the 1e8 kv sort's own rows, starts
+    and lengths (and timed there beside the plain version and one
+    ``torch.gather`` per plane from an index built outside the timed
+    window); a small forced-overflow sort (the flat fallback, no placement);
+    then through the public API ``sort_pairs`` at 1e8 (checked on the
+    device), ``sort`` at 1e8 (bitwise equal to ``torch.sort``'s keys) and u64
+    keys at 1e6 (bitwise against numpy), each with one placement launch,
+    so no fallback; and the whole sorts beside ``torch.sort`` in turns.
+    Returns (launches of the 1e8 kv run, stats)."""
+    err = 0
+    small = torch.from_numpy(np.sort(radix_keys(rng, 5 * 4099, np.uint64, "max").reshape(5, 4099),
+                                     axis=1)).to(dev)
+    starts, lens, overflow = samplesort._bucket_starts(small, samplesort._splitters(small, 16, 4),
+                                                       896)
+    if bool(overflow):
+        raise AssertionError("the small placement case overflowed")
+    fills = [(1 << 64) - 1]
+    err = max(err, max_abs_err(samplesort.place_runs([small], starts, lens, 896, fills),
+                               samplesort.place_runs_plain([small], starts, lens, 896, fills)))
+    forced = radix_keys(rng, 60_000, np.uint32, "ties")
+    samplesort.place_runs.launches = 0
+    fk, fv, fired = samplesort.sort_pairs_samplesort(
+        torch.from_numpy(forced).to(dev), torch.arange(60_000, dtype=torch.int32, device=dev),
+        tile_target=1 << 14, bucket_target=1 << 12, oversample=1, slack=1.01, _debug_overflow=True)
+    check_numpy_kv(forced, np.arange(60_000, dtype=np.int32), fk, fv, "forced-overflow samplesort")
+    phase("compare", f"placement small u64 case: max_abs_err {err}; forced-overflow kv sort of "
+                     f"60000: fallback fired {fired}, placement launches "
+                     f"{samplesort.place_runs.launches}, bitwise equal to numpy")
+    if not fired or samplesort.place_runs.launches:
+        raise AssertionError("the forced-overflow case did not take the fallback")
+
+    keys = random_u32(dev, N_MAIN, SEED + 7)
+    values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+    G, C, B, cap = samplesort._pick_geometry(N_MAIN, 1 << 21, 1 << 21, 1.35)
+    *planes, starts, lens, overflow = samplesort._pair_runs(keys, values, G, C, B, cap, 32)
+    if bool(overflow):
+        raise AssertionError("the 1e8 kv rows overflowed a bucket")
+    fills = [(1 << 32) - 1, samplesort._GMAX, 0]
+    e = max_abs_err(samplesort.place_runs(planes, starts, lens, cap, fills),
+                    samplesort.place_runs_plain(planes, starts, lens, cap, fills))
+    err = max(err, e)
+    if err:
+        raise AssertionError(f"the placement kernel disagrees with its plain version: {err}")
+    src = starts.T[:, :, None].to(torch.int64) + torch.arange(cap, device=dev)
+    index = (torch.arange(G, device=dev)[None, :, None] * C + src.clamp(max=C - 1)).reshape(-1)
+    del src
+    flat = [bits_view(p).view(-1) for p in planes]
+    st = {"ms": time_ms(lambda: samplesort.place_runs(planes, starts, lens, cap, fills), reps=10),
+          "plain_ms": time_ms(lambda: samplesort.place_runs_plain(planes, starts, lens, cap, fills),
+                              reps=3),
+          "library_ms": time_ms(lambda: [torch.gather(f, 0, index) for f in flat], reps=10),
+          "err": err,
+          "bound_ms": bound_ms(int(lens.sum()) * 12 + 8 * G * B + B * G * cap * 12)}
+    phase("compare", f"placement at the 1e8 kv sort's rows (G={G} C={C} B={B} cap={cap}): "
+                     f"max_abs_err {e}")
+    phase("time", f"placement 1e8 kv: {st['ms']:.4f} ms (plain {st['plain_ms']:.3f}, "
+                  f"torch.gather of the 3 planes {st['library_ms']:.4f}, bound "
+                  f"{st['bound_ms']:.4f}) [{smi}]")
+    del flat, index
+    slots = samplesort.place_runs(planes, starts, lens, cap, fills)
+    del planes
+    st["buckets_ms"] = time_ms(lambda: samplesort._sort_buckets(slots, lens, N_MAIN), reps=3)
+    del slots, starts, lens
+    st["rows_ms"] = time_ms(lambda: samplesort._pair_runs(keys, values, G, C, B, cap, 32), reps=3)
+    phase("time", f"samplesort 1e8 kv by step: row sorts, splitters and run bounds "
+                  f"{st['rows_ms']:.3f} ms; placement {st['ms']:.3f} ms; bucket sorts and "
+                  f"compaction {st['buckets_ms']:.3f} ms [{smi}]")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    samplesort.place_runs.launches = 0
+    out_k, out_v = vt.sort_pairs(keys, values, backend="samplesort")
+    torch.cuda.synchronize()
+    launches = samplesort.place_runs.launches
+    st["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_stable_kv(keys, out_k, out_v)
+    del out_k, out_v
+    samplesort.place_runs.launches = 0
+    out = vt.sort(keys, backend="samplesort")
+    torch.cuda.synchronize()
+    keys_launches = samplesort.place_runs.launches
+    want = torch.sort(keys.view(torch.int32) ^ _MIN32).values ^ _MIN32
+    if not torch.equal(out.view(torch.int32), want):
+        raise AssertionError("samplesort keys at 1e8 disagree with torch.sort")
+    del out, want
+    k64 = rng.integers(0, 2**64, size=N_SMALL, dtype=np.uint64) >> np.uint64(20)
+    v64 = np.arange(N_SMALL, dtype=np.uint32)
+    samplesort.place_runs.launches = 0
+    ok, ov = vt.sort_pairs(torch.from_numpy(k64).to(dev), torch.from_numpy(v64).to(dev),
+                           backend="samplesort")
+    o64 = vt.sort(torch.from_numpy(k64).to(dev), backend="samplesort")
+    torch.cuda.synchronize()
+    u64_launches = samplesort.place_runs.launches
+    check_numpy_kv(k64, v64, ok, ov, "samplesort u64 kv at 1e6")
+    if not np.array_equal(bits_view(o64).cpu().numpy().view(np.uint64), np.sort(k64)):
+        raise AssertionError("samplesort u64 keys at 1e6 disagree with np.sort")
+    phase("slice", f"samplesort sort_pairs n={N_MAIN}: exact stable sort on the device, "
+                   f"placement launches {launches}; sort n={N_MAIN}: bitwise equal to torch.sort, "
+                   f"launches {keys_launches}; u64 sort_pairs and sort n={N_SMALL}: bitwise equal "
+                   f"to numpy, launches {u64_launches}; overflow fallback fired: "
+                   f"{not (launches == keys_launches == 1 and u64_launches == 2)}; peak device "
+                   f"memory of the kv sort {st['peak_gb']:.3f} GB")
+    if not (launches == keys_launches == 1 and u64_launches == 2):
+        raise AssertionError("the samplesort path did not run through its placement kernel")
+
+    for what, call in [("sort_pairs", lambda b: lambda k: vt.sort_pairs(k, values, backend=b)),
+                       ("sort", lambda b: lambda k: vt.sort(k, backend=b))]:
+        e2e = in_turns(call, keys, {"torch.sort": "tiled", "samplesort": "samplesort"})
+        st[f"e2e_{what}"] = e2e
+        for name, t in e2e.items():
+            phase("time", f"{what} n={N_MAIN} u32 via {name}: {' / '.join(f'{x:.3f}' for x in t)}"
+                          f" ms [{smi}]")
+    return launches, st
+
+
 def time_main_path(dev, n: int, smi: str):
     """The merge path's kernels at ``n`` random u32 pairs, at the shapes the
     sort gives them: the tile sort of (key, value) planes at the default
@@ -319,7 +648,7 @@ def time_main_path(dev, n: int, smi: str):
     ``torch.sort`` of the same rows carrying positions; then the whole
     stable kv sort is timed through the merge, radix_tiled and torch.sort
     routes, in turns. Raises if a kernel disagrees. Returns ({kernel: ms},
-    {kernel: plain ms}, {kernel: max_abs_err}, tilesort library ms, merge
+    {kernel: plain ms}, {kernel: max_abs_err}, {kernel: library ms}, merge
     levels), merge levels summed."""
     keys = random_u32(dev, n, SEED + n)
     values = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
@@ -334,6 +663,7 @@ def time_main_path(dev, n: int, smi: str):
     library_ms = time_ms(lambda: torch.sort(rows, dim=1, stable=True))
     del rows
     level_ms = []
+    merge_library_ms = 0.0
     run = tile
     while run < n:
         nxt = merge.mergepath_level(cur, 1, run)
@@ -342,6 +672,11 @@ def time_main_path(dev, n: int, smi: str):
         k_ms = time_ms(lambda: merge.mergepath_level(cur, 1, run), reps=3)
         ms["mergepath"] += k_ms
         plain_ms["mergepath"] += time_ms(lambda: merge.mergepath_level_plain(cur, 1, run), reps=3)
+        # the library's answer to one level: a stable sort of each pair of
+        # adjacent runs, carrying positions (the indices)
+        pairs = merge._padded(cur[0], cdiv(n, 2 * run) * 2 * run).view(-1, 2 * run)
+        merge_library_ms += time_ms(lambda: torch.sort(pairs, dim=1, stable=True), reps=3)
+        del pairs
         level_ms.append(round(k_ms, 3))
         cur, run = nxt, run * 2
     del cur, planes
@@ -353,20 +688,16 @@ def time_main_path(dev, n: int, smi: str):
     phase("time", f"n={n} tile={tile}: tilesort {ms['tilesort']:.3f} ms "
                   f"(plain {plain_ms['tilesort']:.3f}, torch.sort of the rows {library_ms:.3f}); "
                   f"mergepath {len(level_ms)} levels {ms['mergepath']:.3f} ms "
-                  f"(plain {plain_ms['mergepath']:.3f}); per level ms {level_ms} [{smi}]")
+                  f"(plain {plain_ms['mergepath']:.3f}, torch.sort of the run pairs "
+                  f"{merge_library_ms:.3f}); per level ms {level_ms} [{smi}]")
 
-    def route(backend):
-        return lambda k, v: vt.sort_pairs(k, v, backend=backend)
-
-    e2e = {"merge": [], "radix_tiled": [], "torch.sort": []}
-    for name, backend in [("torch.sort", "tiled"), ("merge", "merge"),
-                          ("radix_tiled", "radix_tiled"), ("radix_tiled", "radix_tiled"),
-                          ("merge", "merge"), ("torch.sort", "tiled")]:
-        e2e[name].append(measure_seconds_per_call(route(backend), keys, values, reps=REPS) * 1e3)
+    e2e = in_turns(lambda b: lambda k: vt.sort_pairs(k, values, backend=b), keys,
+                   {"torch.sort": "tiled", "merge": "merge", "radix_tiled": "radix_tiled"})
     for name, runs in e2e.items():
         phase("time", f"sort_pairs n={n} stable u32 kv via {name}: "
                       f"{' / '.join(f'{t:.3f}' for t in runs)} ms "
                       f"({n / (min(runs) / 1e3) / 1e6:.1f} M pairs/s best) [{smi}]")
+    library_ms = {"tilesort": library_ms, "mergepath": merge_library_ms}
     return ms, plain_ms, err, library_ms, len(level_ms)
 
 
@@ -454,8 +785,15 @@ def main() -> None:
 
     # --- 7. times: merge kernels beside their plain versions, the routes in turns
     for n in (N_SMALL, N_MAIN):
-        ms, plain_ms, e, tilesort_library_ms, nlevels = time_main_path(dev, n, smi)
+        ms, plain_ms, e, merge_library_ms, nlevels = time_main_path(dev, n, smi)
         err = {k: max(err[k], e.get(k, 0)) for k in err}
+
+    # --- 8. and 9. the bitonic and samplesort paths
+    err["bitonic"] = compare_bitonic(dev, rng)
+    launches["bitonic"], bst = bitonic_main_path(dev, rng, smi)
+    err["bitonic"] = max(err["bitonic"], bst["err"])
+    launches["placement"], sst = samplesort_main_path(dev, rng, smi)
+    err["placement"] = sst["err"]
 
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
@@ -466,12 +804,12 @@ def main() -> None:
          "replaces": "vkradixsort_tpu/ops/merge.py:311", "launches": launches["tilesort"],
          "max_abs_err": err["tilesort"], "ms": ms["tilesort"], "plain_ms": plain_ms["tilesort"],
          "bound_ms": bound_ms(16 * N_MAIN), "bound_by": "bytes",
-         "library_ms": tilesort_library_ms},
+         "library_ms": merge_library_ms["tilesort"]},
         {"name": "mergepath", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/mergepath.cu",
          "replaces": "vkradixsort_tpu/ops/merge.py:655", "launches": launches["mergepath"],
          "max_abs_err": err["mergepath"], "ms": ms["mergepath"],
          "plain_ms": plain_ms["mergepath"], "bound_ms": bound_ms(16 * N_MAIN * nlevels),
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": merge_library_ms["mergepath"]},
         {"name": "histogram", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/histogram.cu",
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],
          "max_abs_err": err["histogram"], "ms": rst["histogram"],
@@ -488,6 +826,17 @@ def main() -> None:
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],
          "bound_ms": bound_ms(16 * N_FUSED), "bound_by": "bytes",
          "library_ms": fst["fused_library"]},
+        {"name": "bitonic", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/bitonic.cu",
+         "replaces": "vkradixsort_tpu/ops/bitonic.py:119",
+         "launches": sum(launches["bitonic"].values()),
+         "max_abs_err": err["bitonic"], "ms": bst["ms"], "plain_ms": bst["plain_ms"],
+         "bound_ms": bst["bound_ms"], "bound_by": bst["bound_by"],
+         "library_ms": bst["library_ms"]},
+        {"name": "placement", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/placement.cu",
+         "replaces": "vkradixsort_tpu/ops/samplesort.py:74", "launches": launches["placement"],
+         "max_abs_err": err["placement"], "ms": sst["ms"], "plain_ms": sst["plain_ms"],
+         "bound_ms": sst["bound_ms"], "bound_by": "bytes", "library_ms": sst["library_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

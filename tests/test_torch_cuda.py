@@ -15,7 +15,17 @@ import pytest
 import torch
 
 import vkradixsort_tpu_torch as vt
-from vkradixsort_tpu_torch.ops import common, fused, histogram, merge, radix_tiled, reference
+from vkradixsort_tpu_torch.ops import (
+    bitonic,
+    common,
+    fused,
+    histogram,
+    merge,
+    radix_tiled,
+    reference,
+    samplesort,
+    segsort,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -242,7 +252,7 @@ def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
 @pytest.mark.parametrize("key_dtype,payload", [
     (np.uint32, np.uint32), (np.float32, np.float64), (np.int64, np.int32), (np.uint64, None),
 ])
-@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
+@pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference", "bitonic", "samplesort"])
 def test_radix_engines_cuda_match_cpu(dev, key_dtype, payload, backend):
     rng = np.random.default_rng(12)
     n = 20_001
@@ -263,3 +273,100 @@ def test_radix_engines_cuda_match_cpu(dev, key_dtype, payload, backend):
         torch.cuda.synchronize()
         assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(ck))
         assert torch.equal(common.bits_view(gv).cpu(), common.bits_view(cv))
+
+
+BITONIC_CASES = [  # (n, key dtype, kind, payload dtypes): below one tile, one tile, global stages
+    (1, np.uint32, "uniform", ()), (100, np.uint32, "max", (np.uint32,)),
+    (1000, np.uint64, "ties", ()), (8192, np.uint32, "ties", (np.uint32,)),
+    (5 * 8192 + 3, np.uint64, "max", (np.uint64,)),
+    (70_001, np.uint32, "uniform", (np.float32, np.uint64)),
+    ((1 << 20) + 1, np.uint32, "ties", (np.uint32,)), (300_000, np.uint64, "max", ()),
+]
+
+
+@pytest.mark.parametrize("n,key_dtype,kind,payloads", BITONIC_CASES,
+                         ids=[f"{c[0]}-{c[1].__name__}-{c[2]}-{len(c[3])}v" for c in BITONIC_CASES])
+def test_bitonic_kernel_matches_plain(dev, n, key_dtype, kind, payloads):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(_radix_keys(rng, n, key_dtype, kind)).to(dev)
+    vals = tuple(torch.from_numpy(rng.integers(0, 1 << 62, size=n, dtype=np.uint64).astype(d))
+                 .to(dev) for d in payloads)
+    signed = segsort.to_signed_order(keys)
+    before = bitonic.launch_counts()
+    ok, ov = bitonic.bitonic_sort_block(signed, vals)
+    after = bitonic.launch_counts()
+    npad = bitonic._padded_size(n)
+    tile = min(merge.default_tile(1 if key_dtype == np.uint32 else 2, dev), npad)
+    levels = (npad // tile).bit_length() - 1
+    assert after["block"] - before["block"] == 1 + levels
+    assert after["global"] - before["global"] == levels * (levels + 1) // 2
+    assert after["gather"] - before["gather"] == len(vals)
+    pk, pv = bitonic.bitonic_sort_block_plain(signed, vals)
+    _equal([common.bits_view(ok), *map(common.bits_view, ov)],
+           [common.bits_view(pk), *map(common.bits_view, pv)])
+    perm = np.argsort(signed.cpu().numpy(), kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), signed.cpu().numpy()[perm])
+    for o, v in zip(ov, vals):
+        np.testing.assert_array_equal(common.bits_view(o).cpu().numpy(),
+                                      common.bits_view(v).cpu().numpy()[perm])
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("val_dtype", [None, np.uint32, np.float64])
+@pytest.mark.parametrize("G,C,B,cap", [(1, 1024, 8, 256), (3, 4096, 8, 896), (5, 2048, 16, 384)])
+def test_placement_kernel_matches_plain(dev, key_dtype, val_dtype, G, C, B, cap):
+    rng = np.random.default_rng(G * C + B)
+    rows = torch.from_numpy(np.sort(_radix_keys(rng, G * C, key_dtype, "max").reshape(G, C),
+                                    axis=1)).to(dev)
+    spl = samplesort._splitters(rows, B, 4)
+    starts, lens, overflow = samplesort._bucket_starts(rows, spl, cap)
+    assert not bool(overflow)
+    planes, fills = [rows], [common.pad_sentinel(rows.dtype)]
+    if val_dtype is not None:
+        gidx = rng.permutation(G * C).astype(np.int32).reshape(G, C)
+        planes.append(torch.from_numpy(gidx).to(dev))
+        planes.append(torch.from_numpy(rng.standard_normal((G, C)).astype(val_dtype)).to(dev))
+        fills += [(1 << 31) - 1, 0]
+    before = samplesort.place_runs.launches
+    got = samplesort.place_runs(planes, starts, lens, cap, fills)
+    assert samplesort.place_runs.launches == before + 1
+    want = samplesort.place_runs_plain(planes, starts, lens, cap, fills)
+    _equal(list(map(common.bits_view, got)), list(map(common.bits_view, want)))
+
+
+def test_samplesort_overflow_fallback_on_the_card(dev):
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.zipf(1.3, size=60_000).astype(np.uint32)).to(dev)
+    vals = torch.arange(60_000, dtype=torch.int32, device=dev)
+    forced = dict(tile_target=1 << 14, bucket_target=1 << 12, oversample=1, slack=1.01)
+    before = samplesort.place_runs.launches
+    ok, ov, overflow = samplesort.sort_pairs_samplesort(keys, vals, _debug_overflow=True, **forced)
+    assert overflow and samplesort.place_runs.launches == before
+    ck, cv = samplesort.sort_pairs_samplesort(keys.cpu(), vals.cpu(), **forced)
+    assert torch.equal(common.bits_view(ok).cpu(), common.bits_view(ck))
+    assert torch.equal(ov.cpu(), cv)
+
+
+def test_bitonic_and_samplesort_paths_never_take_the_plain_versions(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(bitonic, "bitonic_sort_block_plain", refuse)
+    monkeypatch.setattr(samplesort, "place_runs_plain", refuse)
+    rng = np.random.default_rng(9)
+    for backend, n in [("bitonic", 1_000_003), ("samplesort", 3_000_001)]:
+        keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
+        vals = np.arange(n, dtype=np.uint32)
+        before = (sum(bitonic.launch_counts().values()), samplesort.place_runs.launches)
+        ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
+                               backend=backend)
+        after = (sum(bitonic.launch_counts().values()), samplesort.place_runs.launches)
+        assert after[0 if backend == "bitonic" else 1] > before[0 if backend == "bitonic" else 1]
+        perm = np.argsort(keys, kind="stable")
+        np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
+        np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+    before = samplesort.place_runs.launches
+    keys = rng.integers(0, 2**32, size=3_000_001, dtype=np.uint32)
+    out = vt.sort(torch.from_numpy(keys).to(dev), backend="samplesort")
+    assert samplesort.place_runs.launches == before + 1  # the pipeline, not the fallback
+    np.testing.assert_array_equal(out.cpu().numpy(), np.sort(keys))

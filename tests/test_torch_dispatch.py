@@ -117,7 +117,7 @@ def test_default_route_decides_from_the_tensor():
 def test_bad_calls_raise():
     k = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
-        vt.sort(k, backend="bitonic")
+        vt.sort(k, backend="no-such-engine")
     with pytest.raises(ValueError):
         vt.sort(k.view(2, 4), backend="merge")
     with pytest.raises(ValueError):

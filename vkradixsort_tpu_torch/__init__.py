@@ -11,7 +11,9 @@ It imports ``torch`` and never ``jax``. Public API, as in the JAX package:
 The stable key-value sort of large inputs on a CUDA tensor runs the merge
 engine's hand-written kernels (``csrc/``), built with ``nvcc`` at first use;
 ``backend="radix_tiled"`` and ``backend="fused"`` run the radix engines'
-kernels, and ``backend="reference"`` the plain radix sort.
+kernels, ``backend="bitonic"`` the bitonic network's kernels,
+``backend="samplesort"`` the sample sort with its run-placement kernel, and
+``backend="reference"`` the plain radix sort.
 """
 
 from vkradixsort_tpu_torch.engine.config import SortConfig

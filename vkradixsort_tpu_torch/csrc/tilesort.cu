@@ -21,30 +21,18 @@
 // INT32_MAX still sort first. Every run is stored ascending. Carry planes
 // never enter shared memory: after the sort each thread gathers
 // carry[tile_base + position] for its outputs, a read that stays inside the
-// tile's own span of the carry plane. Global offsets are 64-bit.
+// tile's own span of the carry plane. Global offsets are 64-bit. The
+// compare-exchange network and the padding are network.cuh's, shared with
+// the bitonic engine.
 #include <algorithm>
-#include <climits>
 
+#include "network.cuh"
 #include "planes.cuh"
 
 namespace vkrs {
 namespace {
 
 constexpr int kTileThreads = 1024;
-
-// True when element i orders after element l on (keys..., position).
-template <int NCK>
-__device__ __forceinline__ bool orders_after(const int* sk, const int* spos, int tile, int i,
-                                             int l) {
-  int a = sk[i], b = sk[l];
-  if (a != b) return a > b;
-  if (NCK == 2) {
-    a = sk[tile + i];
-    b = sk[tile + l];
-    if (a != b) return a > b;
-  }
-  return spos[i] > spos[l];
-}
 
 template <int NCK, int NCARRY>
 __global__ void __launch_bounds__(kTileThreads)
@@ -55,36 +43,10 @@ __global__ void __launch_bounds__(kTileThreads)
   const long long base = static_cast<long long>(blockIdx.x) * tile;
   const int valid = static_cast<int>(min(static_cast<long long>(tile), n - base));
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const bool real = i < valid;
-#pragma unroll
-    for (int k = 0; k < NCK; ++k) sk[k * tile + i] = real ? P.in[k][base + i] : INT_MAX;
-    spos[i] = i;
-  }
+  stage_padded<NCK>(P.in, sk, spos, base, valid, tile, 0);
   __syncthreads();
-
-  const int half = tile >> 1;
-  for (int size = 2; size <= tile; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-        const int l = i + stride;
-        const bool ascending = (i & size) == 0;
-        if (orders_after<NCK>(sk, spos, tile, i, l) == ascending) {
-#pragma unroll
-          for (int k = 0; k < NCK; ++k) {
-            const int t = sk[k * tile + i];
-            sk[k * tile + i] = sk[k * tile + l];
-            sk[k * tile + l] = t;
-          }
-          const int t = spos[i];
-          spos[i] = spos[l];
-          spos[l] = t;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  // gbase 0: directions from the in-tile index, so every run ends ascending
+  for (int size = 2; size <= tile; size <<= 1) tile_stages<NCK>(sk, spos, tile, 0, size, size >> 1);
 
   // the first `valid` sorted entries are exactly the tile's real elements
   for (int i = threadIdx.x; i < valid; i += blockDim.x) {

@@ -23,10 +23,14 @@ class SortConfig:
       chunk: elements per tile of the radix_tiled pipeline: each histogram
         row and each block of the destination kernel covers ``chunk``
         consecutive keys.
-      tile: elements per tile of the merge engine's tile-sort kernel (a power
-        of two). ``None`` (default) takes the largest tile whose key and
-        position planes fit shared memory twice over on one SM, so two
-        tile-sort blocks share each SM (``ops/merge.default_tile``).
+      tile: grain size in elements per tile. The merge engine's tile-sort
+        kernel sorts tiles of ``tile`` elements (a power of two); the
+        samplesort engine takes it as its tile and bucket target, as in the
+        JAX package. ``None`` (default): merge takes the largest tile whose
+        key and position planes fit shared memory twice over on one SM, so
+        two tile-sort blocks share each SM (``ops/merge.default_tile``);
+        samplesort takes the JAX package's defaults, 2^19 keys-only and
+        2^21 key-value, which were measured on a TPU v5e, not on the H100.
     """
 
     fused_max_n: int = 1 << 15

@@ -142,3 +142,71 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def signed_bits(value: int, itemsize: int) -> int:
+    """The ``itemsize``-byte two's-complement reading of the bit pattern of
+    ``value`` (e.g. 0xFFFFFFFF -> -1 for 4 bytes): how an unsigned value is
+    written into a tensor's :func:`bits_view`."""
+    nbits = 8 * itemsize
+    value &= (1 << nbits) - 1
+    return value - (1 << nbits) if value >> (nbits - 1) else value
+
+
+def pad_sentinel(dtype: torch.dtype) -> int:
+    """Max value of the integer key dtype; padding sorts to the end."""
+    _check_key_dtype(dtype)
+    nbits = 8 * dtype.itemsize
+    if _is_unsigned(dtype):
+        return (1 << nbits) - 1
+    return (1 << (nbits - 1)) - 1
+
+
+def pad_to(keys: torch.Tensor, n_padded: int) -> torch.Tensor:
+    """Pad a 1-D integer key tensor with end-sorting sentinels to length
+    ``n_padded``."""
+    n = keys.shape[0]
+    if n == n_padded:
+        return keys
+    fill = signed_bits(pad_sentinel(keys.dtype), keys.element_size())
+    out = torch.full((n_padded,), fill, dtype=_SIGNED[keys.element_size()], device=keys.device)
+    out[:n] = bits_view(keys)
+    return out.view(keys.dtype)
+
+
+def _order_view(x: torch.Tensor) -> torch.Tensor:
+    """Same-width signed ints whose order is ``x``'s (sign bit flipped for
+    unsigned dtypes)."""
+    if _is_unsigned(x.dtype):
+        return bits_view(x) ^ (_MIN64 if x.element_size() == 8 else _MIN32)
+    return x
+
+
+def composite_searchsorted(k_sorted, g_sorted, qk, qg) -> torch.Tensor:
+    """Count of pairs (k, g) lexicographically < (qk, qg), vectorized over
+    the queries; int32. ``(k_sorted, g_sorted)`` (``g`` int32) must be
+    lexicographically sorted along the last dimension; leading dimensions
+    batch (queries broadcast over them). Keys of up to 4 bytes pack with
+    ``g`` into one int64 and take one ``torch.searchsorted``; 8-byte keys
+    take the bisection loop of the JAX package, in O(|q| log n)."""
+    k_s, q_s = _order_view(k_sorted), _order_view(qk)
+    qg = qg.expand(*k_s.shape[:-1], qg.shape[-1]).contiguous()
+    q_s = q_s.expand(qg.shape).contiguous()
+    if k_s.element_size() <= 4:
+        def pack(k, g):
+            return (k.to(torch.int64) << 32) | (g.to(torch.int64) - _MIN32)
+
+        return torch.searchsorted(pack(k_s, g_sorted), pack(q_s, qg)).to(torch.int32)
+    n = k_s.shape[-1]
+    lo = torch.zeros(qg.shape, dtype=torch.int64, device=qg.device)
+    hi = torch.full(qg.shape, n, dtype=torch.int64, device=qg.device)
+    for _ in range((max(n, 2) - 1).bit_length() + 1):  # ceil(log2(max(n, 2))) + 1
+        mid = (lo + hi) // 2
+        safe = mid.clamp(max=n - 1)
+        mk = torch.gather(k_s, -1, safe)
+        mg = torch.gather(g_sorted, -1, safe)
+        lt = (mk < q_s) | ((mk == q_s) & (mg < qg))
+        active = lo < hi
+        lo = torch.where(active & lt, mid + 1, lo)
+        hi = torch.where(active & ~lt, mid, hi)
+    return lo.to(torch.int32)

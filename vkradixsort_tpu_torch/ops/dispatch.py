@@ -13,12 +13,17 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
                  one payload of 4 or 8 bytes
   "reference"    the plain radix sort (ops/reference.py); any payloads
+  "bitonic"      the whole padded array through one bitonic network
+                 (ops/bitonic.py); N up to a size contract, any payloads
+  "samplesort"   row sorts, splitters, run placement, bucket sorts
+                 (ops/samplesort.py); at most one payload
 
-The merge, radix_tiled and fused engines launch hand-written CUDA kernels
-on CUDA tensors and run their plain versions on CPU tensors.
-``backend=None`` decides from the tensor, up front: CUDA tensors follow
-``engine/config.ROUTE_TABLE``; CPU tensors take "tiled". No default route
-leads to radix_tiled, fused or reference yet. Every entry point is stable
+The merge, radix_tiled, fused, bitonic and samplesort engines launch
+hand-written CUDA kernels on CUDA tensors and run their plain versions on
+CPU tensors. ``backend=None`` decides from the tensor, up front: CUDA
+tensors follow ``engine/config.ROUTE_TABLE``; CPU tensors take "tiled". No
+default route leads to radix_tiled, fused, reference, bitonic or
+samplesort yet. Every entry point is stable
 and bitwise-exact against the JAX package on the same inputs.
 """
 
@@ -27,7 +32,16 @@ from __future__ import annotations
 import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig, route_for
-from vkradixsort_tpu_torch.ops import fused, merge, radix_tiled, reference, segsort, tiled
+from vkradixsort_tpu_torch.ops import (
+    bitonic,
+    fused,
+    merge,
+    radix_tiled,
+    reference,
+    samplesort,
+    segsort,
+    tiled,
+)
 from vkradixsort_tpu_torch.ops.common import (
     complement,
     decode_keys,
@@ -37,7 +51,7 @@ from vkradixsort_tpu_torch.ops.common import (
     take,
 )
 
-ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference")
+ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
 
 
 def _route(keys: torch.Tensor, backend: str | None, op: str, vals: tuple = ()) -> str:
@@ -76,6 +90,30 @@ def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str)
         # several payloads: one sort carrying the positions, then a gather
         out_k, perm = reference._sort_encoded(enc, torch.arange(enc.shape[0], device=enc.device))
         return out_k, tuple(take(v, perm) for v in vals)
+    if path == "bitonic":
+        # the size contract counts resident int32 planes: key planes (two
+        # for 64-bit keys), one per 4 payload bytes, and the position plane
+        # that payloads imply (ops/bitonic.max_n)
+        kp = 2 if enc.dtype == torch.uint64 else 1
+        nplanes = kp + sum(v.element_size() // 4 for v in vals) + (1 if vals else 0)
+        max_n = bitonic.max_n(enc.device, nplanes)
+        if enc.shape[0] > max_n:
+            raise ValueError(
+                "bitonic engine holds the whole (padded) array in one network; at "
+                f"{nplanes} resident plane(s) this device is bound to ~{max_n:,} keys; "
+                "use the 'tiled' or 'merge' engines for larger arrays"
+            )
+        out_s, out_v = bitonic.bitonic_sort_block(segsort.to_signed_order(enc), vals,
+                                                  stable=bool(vals))
+        return segsort.from_signed_order(out_s, enc.dtype), tuple(out_v)
+    if path == "samplesort":
+        _only_one_payload(path, vals)
+        grain = {} if config.tile is None else dict(tile_target=config.tile,
+                                                    bucket_target=config.tile)
+        if not vals:
+            return samplesort.sort_samplesort(enc, **grain), ()
+        out_k, out_v = samplesort.sort_pairs_samplesort(enc, vals[0], **grain)
+        return out_k, (out_v,)
     raise ValueError(f"unknown sort path {path!r}")
 
 
@@ -83,7 +121,7 @@ def _only_one_payload(path: str, vals: tuple) -> None:
     if len(vals) > 1:
         raise NotImplementedError(
             f"engine {path!r} moves a single payload plane; pass one values "
-            "tensor, or use the 'tiled'/'merge'/'reference' engines for "
+            "tensor, or use the 'tiled'/'merge'/'bitonic'/'reference' engines for "
             "multi-payload sorts"
         )
 

@@ -26,6 +26,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VOIDP4 = ctypes.c_void_p * 4
+_U64X4 = ctypes.c_ulonglong * 4
 
 
 def _sources() -> list[pathlib.Path]:
@@ -96,6 +97,10 @@ def load() -> ctypes.CDLL:
         "histogram": [ptr, i64, i32, i32, i32, ptr],
         "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
         "fused": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32],
+        "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i64],
+        "bitonic_global": [ptr, i32, i64, i64, i64],
+        "bitonic_gather": [ptr, ptr, ptr, i64, i32],
+        "placement": [_VOIDP4, _VOIDP4, _U64X4, i32, i32, i32, ptr, ptr, i32, i64, i32, i32],
     }
     for name, args in signatures.items():
         fn = getattr(lib, f"vkrs_{name}")
@@ -120,6 +125,16 @@ def call(name: str, device: torch.device, *args) -> None:
         )
 
 
+def pointers(tensors: list):
+    """The data pointers of up to four tensors, as a C array."""
+    return _VOIDP4(*(t.data_ptr() for t in tensors))
+
+
+def u64s(values: list):
+    """Up to four unsigned 64-bit values (bit patterns), as a C array."""
+    return _U64X4(*(v & 0xFFFFFFFFFFFFFFFF for v in values))
+
+
 def launch(name: str, ins: list, outs: list, nck: int, *scalars) -> None:
     """Launch the merge engine's ``vkrs_<name>`` on plane bundles.
 
@@ -129,8 +144,8 @@ def launch(name: str, ins: list, outs: list, nck: int, *scalars) -> None:
     call(
         name,
         ins[0].device,
-        _VOIDP4(*(t.data_ptr() for t in ins)),
-        _VOIDP4(*(t.data_ptr() for t in outs)),
+        pointers(ins),
+        pointers(outs),
         nck,
         len(ins) - nck,
         *scalars,
