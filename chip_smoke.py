@@ -25,19 +25,26 @@ merge engine), the same call on ``backend="radix_tiled"``, the one-launch
      intermediate keys, and timed beside them, with the pass's index
      widening and scatter, and the peak device memory of the sort;
   6. the fused path at N = 32768: u32 pairs, then u64 keys with a u64
-     payload, one launch each, bitwise against numpy, and timed;
+     payload, one launch each, bitwise against numpy, and timed steadied
+     (batches of 100 back-to-back calls) beside ``torch.sort`` plus the
+     payload's gather;
   7. at the merge path's shapes, 1e6 and 1e8 pairs: hold the tile sort and
      every merge level bitwise against their plain versions on the same
      inputs and time both (CUDA events) and beside ``torch.sort`` of the
      same tiles and run pairs, and time the whole sort through the merge,
      radix_tiled and ``torch.sort`` routes, in turns;
   8. the bitonic path: its kernels bitwise against their plain version on
-     ragged sizes below one tile, one tile, sizes that need global stages,
-     ties, dtype-max keys, u64 keys and several payloads; then
+     ragged sizes below one tile, one tile, sizes that need global groups
+     and levels that end on every remainder of their global distances
+     modulo the group size, ties, dtype-max keys, u64 keys and several
+     payloads, each with the launch counts ``bitonic.plan`` gives; then
      ``backend="bitonic"`` at its size contract (u32 keys at 2^22, stable
      u32 kv at 1,398,101, u64 keys with a u64 payload at 838,860), bitwise
-     against numpy with every launch counted; the kernels timed at the kv
-     shape, and the whole sorts beside ``torch.sort`` in turns;
+     against numpy with every launch counted; the in-block tile swept (8192
+     against 16384) at the three shapes; the kernels timed steadied at the
+     kv shape, and by part (first in-block pass, later in-block passes,
+     global groups, gather); the whole sorts beside ``torch.sort`` in
+     turns;
   9. the samplesort path: the placement kernel bitwise against its plain
      version on a small case and on the 1e8 kv sort's own rows, starts and
      lengths, and timed there; a forced-overflow sort (the flat fallback);
@@ -51,9 +58,10 @@ error against its plain version, its time, its plain version's time, the
 least time the card could take (``bound_ms``: the larger of the bytes moved
 over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
-summed over the launches of one main-path run. The last is the run's
-JSON result. Without a CUDA device, or without the package beside it, it
-exits non-zero and prints no result.
+summed over the launches of one main-path run; the bitonic and fused
+entries also quote their PR 3 times from PERF.md, as text. The last is the
+run's JSON result. Without a CUDA device, or without the package beside
+it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -118,6 +126,26 @@ def time_ms(fn, reps: int = REPS) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_batched_ms(fn, calls: int = 100, batches: int = 5) -> float:
+    """Steady device milliseconds of one ``fn()``: the median over
+    ``batches`` of ``calls`` back-to-back calls between one event pair,
+    divided by ``calls``, after one untimed call. At small sizes a single
+    call's time is mostly launch noise; a batch is what a caller that sorts
+    many small arrays sees."""
+    fn()
+    pairs = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) / calls for s, e in pairs)
 
 
 def bound_ms(nbytes: float) -> float:
@@ -206,6 +234,7 @@ def compare_radix_kernels(dev, rng) -> dict:
                          f"{kind}, every pass: max_abs_err {err['histogram']} / "
                          f"{err['radix_dest']}")
     for n, kdt, vdt, kind in [(N_FUSED, np.uint32, np.uint32, "ties"),
+                              (N_FUSED, np.uint64, np.uint64, "uniform"),
                               (N_FUSED - 5, np.uint64, np.uint64, "max"),
                               (1000, np.uint64, None, "uniform"),
                               (33, np.uint32, np.float32, "max")]:
@@ -338,11 +367,14 @@ def fused_main_path(dev, rng, smi: str) -> tuple:
         s, perm = torch.sort(keys.view(torch.int32) ^ _MIN32, stable=True)
         return s, values.view(torch.int32)[perm]
 
-    st = {"fused": time_ms(lambda: fused.sort_fused(keys, values), reps=20),
+    k64 = torch.from_numpy(radix_keys(rng, N_FUSED, np.uint64, "uniform")).to(dev)
+    st = {"fused": time_batched_ms(lambda: fused.sort_fused(keys, values)),
           "fused_plain": time_ms(lambda: fused.sort_fused_plain(keys, values)),
-          "fused_library": time_ms(library, reps=20), "err": err}
-    phase("time", f"n={N_FUSED} u32 kv: fused {st['fused']:.4f} ms (plain "
-                  f"{st['fused_plain']:.4f}, torch.sort + gather {st['fused_library']:.4f}); "
+          "fused_library": time_batched_ms(library),
+          "fused_u64": time_batched_ms(lambda: fused.sort_fused(k64, k64)), "err": err}
+    phase("time", f"n={N_FUSED} u32 kv, steadied: fused {st['fused']:.4f} ms (plain "
+                  f"{st['fused_plain']:.4f}, torch.sort + gather {st['fused_library']:.4f}; "
+                  f"PR 3: 0.2769, PERF.md); u64 keys with a u64 payload {st['fused_u64']:.4f} ms; "
                   f"max_abs_err {err} [{smi}]")
     return calls[0], st
 
@@ -359,12 +391,11 @@ def in_turns(call, keys: torch.Tensor, backends: dict) -> dict:
 
 
 def bitonic_expected(n: int, nk: int, npayloads: int, dev) -> dict:
-    """Launches of one bitonic sort of n elements: one in-block launch and
-    one more per level above the tile, one global launch per (level, j >=
-    tile), one gather per payload."""
-    npad = bitonic._padded_size(n)
-    levels = (npad // min(merge.default_tile(nk, dev), npad)).bit_length() - 1
-    return {"block": 1 + levels, "global": levels * (levels + 1) // 2, "gather": npayloads}
+    """Launches of one bitonic sort of n elements, from the schedule
+    ``bitonic.plan`` builds: in-block passes, global groups, and one gather
+    per payload."""
+    launches = bitonic.plan(bitonic._padded_size(n), bitonic.block_tile(nk, dev), nk)
+    return bitonic.plan_counts(launches, npayloads)
 
 
 def bitonic_bound_ms(n: int, nk: int, key_bytes: int, payload_bytes: int) -> tuple:
@@ -382,47 +413,59 @@ def bitonic_bound_ms(n: int, nk: int, key_bytes: int, payload_bytes: int) -> tup
 
 def time_bitonic_parts(signed: torch.Tensor, values: torch.Tensor, dev) -> dict:
     """Device ms of each part of one bitonic network on 1-D int32 keys
-    ``signed`` carrying ``values``, by CUDA events around every launch
-    (median of 5 after one untimed run): the first in-block launch, the
-    later in-block launches, the global stages and the gather, each summed."""
+    ``signed`` carrying ``values``, on the schedule ``bitonic.plan`` builds:
+    each launch timed steadied on its own (batches of 20 repeats; a launch
+    does the same work whatever order its input is in), summed by part:
+    the first in-block pass, the later in-block passes, the global groups
+    and the gather."""
     n = signed.shape[0]
     npad = bitonic._padded_size(n)
-    tile = min(merge.default_tile(1, dev), npad)
-    runs = []
-    for _ in range(6):
-        work = torch.empty((2, npad), dtype=torch.int32, device=dev)
-        parts = {"first block": [], "later blocks": [], "global stages": [], "gather": []}
+    tile = min(bitonic.block_tile(1, dev), npad)
+    work, _ = bitonic.network([signed], [], tile=tile)
+    parts = {"first block": 0.0, "later blocks": 0.0, "global groups": 0.0, "gather": 0.0}
+    for launch in bitonic.plan(npad, tile, 1):
+        if isinstance(launch, bitonic.GlobalGroup):
+            part, fn = "global groups", lambda: bitonic.global_group(work, launch)
+        elif launch.first:
+            part, fn = "first block", lambda: bitonic.block_pass([signed], work, n, tile, launch)
+        else:
+            part, fn = "later blocks", lambda: bitonic.block_pass([], work, n, tile, launch)
+        parts[part] += time_batched_ms(fn, calls=20)
+    parts["gather"] = time_batched_ms(lambda: bitonic.gather_payload(values, work[1]), calls=20)
+    return parts
 
-        def timed(part, fn):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            parts[part].append((start, end))
 
-        timed("first block", lambda: bitonic.block_pass([signed], work, n, tile, 0))
-        k = 2 * tile
-        while k <= npad:
-            j = k // 2
-            while j >= tile:
-                timed("global stages", lambda: bitonic.global_stage(work, k, j))
-                j //= 2
-            timed("later blocks", lambda: bitonic.block_pass([], work, n, tile, k))
-            k *= 2
-        timed("gather", lambda: bitonic.gather_payload(values, work[1]))
-        runs.append(parts)
-    torch.cuda.synchronize()
-    return {part: statistics.median(sum(s.elapsed_time(e) for s, e in r[part]) for r in runs[1:])
-            for part in runs[0]}
+def bitonic_tile_sweep(dev, rng, smi: str) -> dict:
+    """The in-block tile swept, 8192 against 16384, at the three contract
+    shapes: the kernels steadied at each tile, and the sorted work buffers
+    bitwise equal across tiles. Returns {shape: {tile: ms}}."""
+    sweep = {}
+    for name, n, nk, nv in [("kv", N_BITONIC_KV, 1, 1), ("keys", N_BITONIC_KEYS, 1, 0),
+                            ("kv64", N_BITONIC_KV64, 2, 1)]:
+        planes = [torch.from_numpy(rng.integers(-(2**31), 2**31, size=n).astype(np.int32)).to(dev)
+                  for _ in range(nk)]
+        vals = [torch.arange(n, dtype=torch.int32, device=dev)] * nv
+        works, sweep[name] = [], {}
+        for tile in (8192, 16384):
+            works.append(bitonic.network(planes, vals, tile=tile)[0])
+            sweep[name][tile] = time_batched_ms(lambda: bitonic.network(planes, vals, tile=tile),
+                                                calls=20)
+        if not torch.equal(works[0], works[1]):
+            raise AssertionError(f"the bitonic network's result depends on its tile at {name}")
+        phase("time", f"bitonic tile sweep {name} n={n}: " + ", ".join(
+            f"tile {t} {ms:.4f} ms" for t, ms in sweep[name].items())
+            + f"; results bitwise equal; the engine takes {bitonic.block_tile(nk, dev)} [{smi}]")
+    return sweep
 
 
 def compare_bitonic(dev, rng) -> int:
     """The bitonic kernels against their plain version, bitwise: ragged
-    sizes below one tile, one tile exactly, sizes that need global stages;
-    heavy ties, keys equal to the dtype's maximum, u64 keys, 4- and 8-byte
-    payloads, several at once."""
-    tile = merge.default_tile(1, dev)
+    sizes below one tile, one tile exactly, sizes that need global groups,
+    levels that end on every remainder of their global distances modulo the
+    group size (2^17 + 1 and 2^19 + 1 beside the contract shapes); heavy
+    ties, keys equal to the dtype's maximum, u64 keys, 4- and 8-byte
+    payloads, several at once; each with the launch counts of its plan."""
+    tile = bitonic.block_tile(1, dev)
     err = 0
     for n, kdt, kind, vdts in [(100, np.uint32, "max", (np.uint32,)),
                                (1000, np.uint64, "ties", ()),
@@ -430,6 +473,8 @@ def compare_bitonic(dev, rng) -> int:
                                (5 * tile + 3, np.uint64, "max", (np.uint64, np.float32)),
                                (3 * tile + 1, np.uint32, "uniform",
                                 (np.uint64, np.uint32, np.float32)),
+                               ((1 << 17) + 1, np.uint32, "max", (np.uint32,)),
+                               ((1 << 19) + 1, np.uint64, "ties", (np.uint64,)),
                                ((1 << 20) + 1, np.uint32, "ties", (np.uint32,))]:
         keys = segsort.to_signed_order(torch.from_numpy(radix_keys(rng, n, kdt, kind)).to(dev))
         vals = tuple(torch.from_numpy(rng.integers(0, 2**63, size=n, dtype=np.uint64).astype(v))
@@ -500,15 +545,18 @@ def bitonic_main_path(dev, rng, smi: str) -> tuple:
         s, perm = torch.sort(signed, stable=True)
         return s, values[perm]
 
-    st = {"ms": time_ms(lambda: bitonic.network([signed], [values]), reps=10),
+    st = {"ms": time_batched_ms(lambda: bitonic.network([signed], [values])),
           "plain_ms": time_ms(lambda: bitonic.bitonic_sort_block_plain(signed, (values,)), reps=3),
-          "library_ms": time_ms(library, reps=10), "err": err}
+          "library_ms": time_batched_ms(library), "err": err}
     st["bound_ms"], st["bound_by"] = bitonic_bound_ms(N_BITONIC_KV, 1, 4, 4)
-    phase("time", f"n={N_BITONIC_KV} stable u32 kv: bitonic kernels {st['ms']:.4f} ms (plain "
-                  f"{st['plain_ms']:.3f}, torch.sort + gather {st['library_ms']:.4f}, bound "
-                  f"{st['bound_ms']:.4f} by {st['bound_by']}); max_abs_err {err} [{smi}]")
+    phase("time", f"n={N_BITONIC_KV} stable u32 kv, steadied: bitonic kernels {st['ms']:.4f} ms "
+                  f"(plain {st['plain_ms']:.3f}, torch.sort + gather {st['library_ms']:.4f}, "
+                  f"bound {st['bound_ms']:.4f} by {st['bound_by']}; PR 3: 0.966, PERF.md); "
+                  f"max_abs_err {err} [{smi}]")
+    st["sweep"] = bitonic_tile_sweep(dev, rng, smi)
     st["parts"] = time_bitonic_parts(signed, values, dev)
-    phase("time", f"n={N_BITONIC_KV} stable u32 kv, bitonic launches by part (ms, summed): "
+    phase("time", f"n={N_BITONIC_KV} stable u32 kv, bitonic launches by part (ms, each launch "
+                  "steadied, summed): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in st["parts"].items()) + f" [{smi}]")
     uvals = values.view(torch.uint32)
     for what, n, call in [
@@ -825,13 +873,14 @@ def main() -> None:
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],
          "bound_ms": bound_ms(16 * N_FUSED), "bound_by": "bytes",
-         "library_ms": fst["fused_library"]},
+         "library_ms": fst["fused_library"], "pr3": "0.2769 ms, 1 launch (PERF.md)"},
         {"name": "bitonic", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/bitonic.cu",
          "replaces": "vkradixsort_tpu/ops/bitonic.py:119",
          "launches": sum(launches["bitonic"].values()),
          "max_abs_err": err["bitonic"], "ms": bst["ms"], "plain_ms": bst["plain_ms"],
          "bound_ms": bst["bound_ms"], "bound_by": bst["bound_by"],
-         "library_ms": bst["library_ms"]},
+         "library_ms": bst["library_ms"],
+         "pr3": "0.966 ms, 46 launches: 9 in-block, 36 global, 1 gather (PERF.md)"},
         {"name": "placement", "route": "cuda",
          "source": "vkradixsort_tpu_torch/csrc/placement.cu",
          "replaces": "vkradixsort_tpu/ops/samplesort.py:74", "launches": launches["placement"],

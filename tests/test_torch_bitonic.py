@@ -3,12 +3,19 @@ the kernel wrapper runs its plain version, held against the JAX engine in
 Pallas interpret mode on the same numpy inputs: the plane split and join,
 ``bitonic_sort_block`` over sizes, distributions, key widths and payloads,
 and the public API through ``backend="bitonic"``, its size contract
-included.
+included. The kernels' schedule (``bitonic.plan``: global groups and
+in-block rounds) is checked for covering every stage of the network once,
+in order, for its launch counts at the contract shapes and for its
+thread-to-slot maps; its plain torch run (``scheduled_sort_plain``, with a
+small tile) is held against the plain network and against the JAX engine on
+the same inputs.
 
 Tolerance: exact (bitwise). A sort of keys has one answer, and with payloads
 the sort is stable, which has one answer too. Each JAX case runs once, in a
 module-scoped fixture.
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -256,3 +263,132 @@ def test_api_tiny_inputs(n):
     ok, ov = vt.sort_pairs(_t(keys), _t(vals), backend="bitonic")
     _eq(ok, np.sort(keys))
     _eq(ov, vals[np.argsort(keys, kind="stable")])
+
+
+# ---------------------------------------------------------------------------
+# the kernels' schedule (bitonic.plan) and its plain torch run
+
+PLAN_NPADS = [1 << e for e in range(10, 24)]
+
+
+@pytest.mark.parametrize("nk", [1, 2])
+@pytest.mark.parametrize("tile", [8192, 16384])
+@pytest.mark.parametrize("npad", PLAN_NPADS)
+def test_plan_covers_every_stage_once_in_network_order(npad, tile, nk):
+    launches = bitonic.plan(npad, tile, nk)
+    logn, logt = npad.bit_length() - 1, min(tile, npad).bit_length() - 1
+    network = [(s, j) for s in range(1, logn + 1) for j in range(s - 1, -1, -1)]
+    assert bitonic.plan_stages(launches) == network
+    assert isinstance(launches[0], bitonic.BlockPass) and launches[0].first
+    assert sum(isinstance(x, bitonic.BlockPass) and x.first for x in launches) == 1
+    for x in launches:
+        if isinstance(x, bitonic.GlobalGroup):  # distances from the tile up, r per launch
+            assert x.top - x.r + 1 >= logt and 1 <= x.r <= bitonic.GROUP_DISTANCES[nk]
+        else:  # distances below the tile, within each round's window
+            assert len(x.stages) <= bitonic.MAX_BLOCK_STAGES
+            for top, _, b in x.stages:
+                assert top - bitonic.ROUND_BITS < b <= top < logt
+    counts = bitonic.plan_counts(launches, 0)
+    levels = logn - logt
+    assert counts["block"] == 1 + levels
+    r = bitonic.GROUP_DISTANCES[nk]
+    assert counts["global"] == sum(-(-d // r) for d in range(1, levels + 1))
+
+
+def test_block_rounds_open_a_window_only_when_a_stage_leaves_it():
+    first = bitonic.plan(1 << 14, 1 << 14, 1)[0]
+    tops = [t for t, _ in itertools.groupby(st[0] for st in first.stages)]
+    assert all(a != b for a, b in zip(tops, tops[1:]))
+    assert len(tops) == 29  # 105 stages of the first pass at a tile of 16384
+    later = bitonic.plan(1 << 15, 1 << 14, 1)[-1]
+    assert [t for t, _ in itertools.groupby(st[0] for st in later.stages)] == [13, 9, 5, 3]
+
+
+# Launches of the three contract shapes on an H100 (PERF.md, PR 4): the
+# engine tile is 16384 for one key plane and 8192 for two.
+CONTRACT_LAUNCHES = [
+    (1 << 22, 1, 0, {"block": 9, "global": 12, "gather": 0}),  # u32 keys
+    (1_398_101, 1, 1, {"block": 8, "global": 10, "gather": 1}),  # stable u32 kv
+    (838_860, 2, 1, {"block": 8, "global": 10, "gather": 1}),  # u64 keys, u64 payload
+]
+
+
+@pytest.mark.parametrize("n,nk,npayloads,want", CONTRACT_LAUNCHES)
+def test_plan_launch_counts_at_the_contract_shapes(n, nk, npayloads, want):
+    tile = bitonic.block_tile(nk, torch.device("cpu"))  # the H100's limits
+    assert tile == (16384 if nk == 1 else 8192)
+    launches = bitonic.plan(bitonic._padded_size(n), tile, nk)
+    assert bitonic.plan_counts(launches, npayloads) == want
+
+
+@pytest.mark.parametrize("logt", range(10, 16))
+def test_round_thread_bits_are_a_bijection_on_distinct_banks(logt):
+    for top in range(bitonic.ROUND_BITS - 1, logt):
+        lo = top - bitonic.ROUND_BITS + 1
+        pos = bitonic.thread_bit_positions(top, logt)
+        assert sorted(pos + list(range(lo, top + 1))) == list(range(logt))
+        for m in range(1 << bitonic.ROUND_BITS):  # one shared-memory access of a warp
+            slots = [bitonic.swizzle(sum(((lane >> k) & 1) << p for k, p in enumerate(pos[:5]))
+                                     | (m << lo)) for lane in range(32)]
+            assert len({s & 31 for s in slots}) == 32
+    assert sorted(bitonic.swizzle(i) for i in range(1 << logt)) == list(range(1 << logt))
+
+
+SCHEDULE_CASES = [  # (n, key dtype, distribution, value dtypes, tile)
+    (100, np.uint32, "max", (np.uint32,), 64),
+    (5000, np.int64, "max", (np.uint64, np.float32), 64),
+    (16384, np.uint32, "uniform", (np.int32,), 1024),
+    (3001, np.uint64, "descending", (), 256),
+    (1024, np.int32, "constant", (np.float64,), 1024),
+]
+
+
+@pytest.mark.parametrize("n,dt,dist,vdts,tile", SCHEDULE_CASES,
+                         ids=[f"{c[0]}-{c[1].__name__}-{c[2]}-t{c[4]}" for c in SCHEDULE_CASES])
+def test_scheduled_plain_matches_the_network(n, dt, dist, vdts, tile):
+    keys = _t(_keys(n + tile, n, dt, dist))
+    vals = tuple(_t(_values(n + j, n, v)) for j, v in enumerate(vdts))
+    sk, sv = bitonic.scheduled_sort_plain(keys, vals, tile=tile)
+    pk, pv = bitonic.bitonic_sort_block_plain(keys, vals, stable=True)
+    _eq(sk, pk.numpy())
+    for s, p in zip(sv, pv):
+        _eq(s, p.numpy())
+
+
+@pytest.mark.parametrize("i", range(len(KEY_CASES)),
+                         ids=[f"{c[0]}-{c[1].__name__}-{c[2]}" for c in KEY_CASES])
+def test_scheduled_plain_keys_match_jax(jax_blocks, i):
+    keys, _, jk, _ = jax_blocks[("keys", i)]
+    sk, _ = bitonic.scheduled_sort_plain(_t(keys), tile=64)
+    _eq(sk, jk)
+
+
+@pytest.mark.parametrize("i", range(len(PAIR_CASES)),
+                         ids=[f"{c[0]}-{c[1].__name__}-{c[2]}-{len(c[3])}v" for c in PAIR_CASES])
+def test_scheduled_plain_pairs_match_jax(jax_blocks, i):
+    keys, vals, jk, jv = jax_blocks[("pairs", i)]
+    sk, sv = bitonic.scheduled_sort_plain(_t(keys), tuple(map(_t, vals)), tile=64)
+    _eq(sk, jk)
+    for s, j in zip(sv, jv):
+        _eq(s, j)
+
+
+def test_the_engine_never_runs_the_schedule_in_plain_torch(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("scheduled_sort_plain is for the tests only")
+
+    monkeypatch.setattr(bitonic, "scheduled_sort_plain", refuse)
+    keys = _keys(3, 3000, np.uint32, "max")
+    ok, _ = bitonic.bitonic_sort_block(_t(keys))
+    _eq(ok, np.sort(keys))
+    out = vt.sort(_t(keys), backend="bitonic")
+    _eq(out, np.sort(keys))
+
+
+def test_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="powers of two"):
+        bitonic.plan(3000, 8192, 1)
+    with pytest.raises(ValueError, match="1 or 2 key planes"):
+        bitonic.plan(1 << 12, 1024, 3)
+    with pytest.raises(ValueError, match="tile must lie"):
+        bitonic.plan(1 << 20, 1 << 16, 1)

@@ -207,8 +207,8 @@ def test_histogram_and_destination_kernels_match_plain(dev, dtype, kind, n, tile
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
 @pytest.mark.parametrize("val_dtype", [None, np.float32, np.uint64])
-@pytest.mark.parametrize("kind", ["ties", "max", "uniform"])
-@pytest.mark.parametrize("n", [2, 33, 1000, 32768])
+@pytest.mark.parametrize("kind", ["ties", "max", "uniform", "constant"])
+@pytest.mark.parametrize("n", [2, 31, 33, 1000, 32767, 32768])
 def test_fused_kernel_matches_plain(dev, key_dtype, val_dtype, kind, n):
     rng = np.random.default_rng(n)
     keys = torch.from_numpy(_radix_keys(rng, n, key_dtype, kind)).to(dev)
@@ -281,6 +281,12 @@ BITONIC_CASES = [  # (n, key dtype, kind, payload dtypes): below one tile, one t
     (5 * 8192 + 3, np.uint64, "max", (np.uint64,)),
     (70_001, np.uint32, "uniform", (np.float32, np.uint64)),
     ((1 << 20) + 1, np.uint32, "ties", (np.uint32,)), (300_000, np.uint64, "max", ()),
+    # levels whose global distances d end on each remainder of d mod r = 4
+    # (tile 8192: the top level has d = 5, 7 and 9)
+    ((1 << 17) + 1, np.uint32, "ties", (np.uint32,)),
+    ((1 << 17) + 1, np.uint64, "max", (np.uint64,)),
+    ((1 << 19) + 1, np.uint32, "max", (np.float32,)), ((1 << 19) + 1, np.uint64, "uniform", ()),
+    (1 << 22, np.uint32, "uniform", ()), (1 << 22, np.uint64, "ties", (np.uint32,)),
 ]
 
 
@@ -295,12 +301,9 @@ def test_bitonic_kernel_matches_plain(dev, n, key_dtype, kind, payloads):
     before = bitonic.launch_counts()
     ok, ov = bitonic.bitonic_sort_block(signed, vals)
     after = bitonic.launch_counts()
-    npad = bitonic._padded_size(n)
-    tile = min(merge.default_tile(1 if key_dtype == np.uint32 else 2, dev), npad)
-    levels = (npad // tile).bit_length() - 1
-    assert after["block"] - before["block"] == 1 + levels
-    assert after["global"] - before["global"] == levels * (levels + 1) // 2
-    assert after["gather"] - before["gather"] == len(vals)
+    nk = 1 if key_dtype == np.uint32 else 2
+    launches = bitonic.plan(bitonic._padded_size(n), bitonic.block_tile(nk, dev), nk)
+    assert {k: after[k] - before[k] for k in after} == bitonic.plan_counts(launches, len(vals))
     pk, pv = bitonic.bitonic_sort_block_plain(signed, vals)
     _equal([common.bits_view(ok), *map(common.bits_view, ov)],
            [common.bits_view(pk), *map(common.bits_view, pv)])
@@ -370,3 +373,22 @@ def test_bitonic_and_samplesort_paths_never_take_the_plain_versions(dev, monkeyp
     out = vt.sort(torch.from_numpy(keys).to(dev), backend="samplesort")
     assert samplesort.place_runs.launches == before + 1  # the pipeline, not the fallback
     np.testing.assert_array_equal(out.cpu().numpy(), np.sort(keys))
+
+
+@pytest.mark.parametrize("n,key_dtype", [((1 << 19) + 1, np.uint32), (300_000, np.uint64)])
+def test_bitonic_tile_does_not_change_the_result(dev, n, key_dtype):
+    rng = np.random.default_rng(n + 1)
+    keys = torch.from_numpy(_radix_keys(rng, n, key_dtype, "max")).to(dev)
+    signed = segsort.to_signed_order(keys)
+    planes = [p.contiguous() for p in bitonic._split_planes(signed)]
+    vals = [torch.arange(n, dtype=torch.int32, device=dev)]
+    want, (want_v,) = bitonic.network(planes, vals)
+    for tile in (1024, 16384):
+        got, (got_v,) = bitonic.network(planes, vals, tile=tile)
+        _equal([got, got_v], [want, want_v])
+
+
+def test_fused_kernel_refuses_more_than_it_holds(dev):
+    keys = torch.zeros(fused.MAX_N + 1, dtype=torch.uint32, device=dev)
+    with pytest.raises(ValueError, match="fused kernel takes"):
+        fused.sort_fused(keys, config=vt.SortConfig(fused_max_n=fused.MAX_N + 1))

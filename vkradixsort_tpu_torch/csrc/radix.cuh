@@ -1,6 +1,6 @@
 // Primitives shared by the radix kernels (histogram.cu, radix_dest.cu,
 // fused.cu): an 8-bit digit of a key, and the stable rank of a warp's
-// elements among equal digits.
+// elements among equal digits (fused.cu finds the same rank by ballots).
 #pragma once
 
 #include <cuda_runtime.h>

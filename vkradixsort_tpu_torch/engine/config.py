@@ -15,11 +15,12 @@ class SortConfig:
     """Knobs for the sort pipelines.
 
     Attributes:
-      fused_max_n: largest N the fused one-block radix kernel accepts when
+      fused_max_n: largest N the fused one-launch radix kernel accepts when
         it is selected (``backend="fused"``), the analog of the reference's
         single-workgroup regime (VkRadixSort recommends it below about 10k
-        keys). One block runs every pass, so the time grows linearly with
-        N on one SM; above this dispatch raises.
+        keys); above this dispatch raises. One cluster of blocks holds the
+        whole array on chip, so on the card the kernel itself takes at most
+        ``ops/fused.MAX_N`` (32768, the default).
       chunk: elements per tile of the radix_tiled pipeline: each histogram
         row and each block of the destination kernel covers ``chunk``
         consecutive keys.

@@ -1,11 +1,12 @@
 """One-launch LSD radix sort of a small array: VkRadixSort's single_radixsort.
 
 Port of ``vkradixsort_tpu/ops/fused.py``. ``sort_fused`` launches the CUDA
-kernel ``csrc/fused.cu`` (one block runs every 8-bit pass) on a CUDA tensor
-and runs its plain version ``sort_fused_plain``, the plain radix sort of
-``ops/reference.py`` with one chunk, on a CPU tensor. It takes
-``N <= SortConfig.fused_max_n``; dispatch routes to it on explicit
-``backend="fused"`` only.
+kernel ``csrc/fused.cu`` (a cluster of eight blocks runs every 8-bit pass
+with the array held on chip, in registers and shared memory) on a CUDA
+tensor and runs its plain version ``sort_fused_plain``, the plain radix sort
+of ``ops/reference.py`` with one chunk, on a CPU tensor. It takes
+``N <= SortConfig.fused_max_n``, and the kernel at most ``MAX_N``; dispatch
+routes to it on explicit ``backend="fused"`` only.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig
 from vkradixsort_tpu_torch.ops import kernels, reference
+
+# Most keys the kernel takes (csrc/fused.cu kFusedMaxN): positions fit 15
+# bits, and the array fits the shared memory of the kernel's cluster.
+MAX_N = 1 << 15
 
 
 def sort_fused_plain(enc: torch.Tensor, values=None):
@@ -44,23 +49,23 @@ def sort_fused(enc: torch.Tensor, values=None, config: SortConfig = DEFAULT_CONF
         return sort_fused_plain(enc, values)
     if enc.device.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA tensors, got {enc.device}")
-    if n >= 1 << 31:
-        raise ValueError(f"the fused kernel takes n < 2^31, got {n}")
+    if n > MAX_N:
+        raise ValueError(f"the fused kernel takes n <= {MAX_N}, got {n}")
     if n <= 1:
         return enc.clone(), None if values is None else values.clone()
     keys_in = enc.contiguous()
-    ka, kb = torch.empty_like(keys_in), torch.empty_like(keys_in)
-    vals_in = va = vb = None
+    keys_out = torch.empty_like(keys_in)
+    vals_in = vals_out = None
     if values is not None:
         vals_in = values.contiguous()
-        va, vb = torch.empty_like(vals_in), torch.empty_like(vals_in)
+        vals_out = torch.empty_like(vals_in)
     kernels.call(
         "fused", enc.device,
-        keys_in.data_ptr(), _ptr(vals_in), ka.data_ptr(), kb.data_ptr(), _ptr(va), _ptr(vb),
+        keys_in.data_ptr(), _ptr(vals_in), keys_out.data_ptr(), _ptr(vals_out),
         n, enc.element_size(), 0 if values is None else values.element_size(),
     )
     sort_fused.launches += 1
-    return ka, None if values is None else va
+    return keys_out, vals_out
 
 
 sort_fused.launches = 0

@@ -89,6 +89,7 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ints = ctypes.POINTER(ctypes.c_int)
     planes = [_VOIDP4, _VOIDP4, i32, i32, i64]
     # the arguments between the device (first) and the stream (last)
     signatures = {
@@ -96,9 +97,9 @@ def load() -> ctypes.CDLL:
         "mergepath": planes + [i64],
         "histogram": [ptr, i64, i32, i32, i32, ptr],
         "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
-        "fused": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32],
-        "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i64],
-        "bitonic_global": [ptr, i32, i64, i64, i64],
+        "fused": [ptr, ptr, ptr, ptr, i32, i32, i32],
+        "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i32, ints, i32],
+        "bitonic_group": [ptr, i32, i64, i32, i32, i32],
         "bitonic_gather": [ptr, ptr, ptr, i64, i32],
         "placement": [_VOIDP4, _VOIDP4, _U64X4, i32, i32, i32, ptr, ptr, i32, i64, i32, i32],
     }
@@ -116,9 +117,10 @@ def call(name: str, device: torch.device, *args) -> None:
     ``device``; pointers are passed as ints (``tensor.data_ptr()``). The
     caller checks devices, dtypes and shapes. Raises if the launch fails."""
     lib = load()
-    err = getattr(lib, f"vkrs_{name}")(
-        device.index, *args, torch.cuda.current_stream(device).cuda_stream
-    )
+    # the raw handle of the current stream (what Stream.cuda_stream holds,
+    # without building a Stream object: a few microseconds a launch)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    err = getattr(lib, f"vkrs_{name}")(device.index, *args, stream)
     if err != 0:
         raise RuntimeError(
             f"vkrs_{name} failed: {lib.vkrs_error_string(err).decode()} (cudaError {err})"
