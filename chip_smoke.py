@@ -31,8 +31,16 @@ merge engine), the same call on ``backend="radix_tiled"``, the one-launch
   7. at the merge path's shapes, 1e6 and 1e8 pairs: hold the tile sort and
      every merge level bitwise against their plain versions on the same
      inputs and time both (CUDA events) and beside ``torch.sort`` of the
-     same tiles and run pairs, and time the whole sort through the merge,
-     radix_tiled and ``torch.sort`` routes, in turns;
+     same tiles and run pairs, each merge level's ms and TB/s, and time the
+     whole sort through the merge, radix_tiled and ``torch.sort`` routes, in
+     turns; then the tile sweep at 1e8 (tile-sort tile 8192 against 16384,
+     the kernel alone and the whole ``sort_pairs`` in turns; the merge
+     kernel's output tile 4096 against 8192 over every level; results
+     bitwise equal across tiles); the co-rank mirror ``coranks_plain``
+     against the merge kernel's own splits at one 1e8 level; and at
+     n = 2^31 + 4097 (one key plane) the tile sort's last tiles and one
+     merge level's last run pairs bitwise against their plain versions run
+     on those slices alone;
   8. the bitonic path: its kernels bitwise against their plain version on
      ragged sizes below one tile, one tile, sizes that need global groups
      and levels that end on every remainder of their global distances
@@ -712,7 +720,7 @@ def time_main_path(dev, n: int, smi: str):
     del rows
     level_ms = []
     merge_library_ms = 0.0
-    run = tile
+    runs0, run = cur, tile
     while run < n:
         nxt = merge.mergepath_level(cur, 1, run)
         e = max_abs_err(nxt, merge.mergepath_level_plain(cur, 1, run))
@@ -725,7 +733,7 @@ def time_main_path(dev, n: int, smi: str):
         pairs = merge._padded(cur[0], cdiv(n, 2 * run) * 2 * run).view(-1, 2 * run)
         merge_library_ms += time_ms(lambda: torch.sort(pairs, dim=1, stable=True), reps=3)
         del pairs
-        level_ms.append(round(k_ms, 3))
+        level_ms.append(k_ms)
         cur, run = nxt, run * 2
     del cur, planes
     phase("compare", f"n={n} tile={tile}: tilesort max_abs_err {err['tilesort']}; "
@@ -737,7 +745,22 @@ def time_main_path(dev, n: int, smi: str):
                   f"(plain {plain_ms['tilesort']:.3f}, torch.sort of the rows {library_ms:.3f}); "
                   f"mergepath {len(level_ms)} levels {ms['mergepath']:.3f} ms "
                   f"(plain {plain_ms['mergepath']:.3f}, torch.sort of the run pairs "
-                  f"{merge_library_ms:.3f}); per level ms {level_ms} [{smi}]")
+                  f"{merge_library_ms:.3f}) [{smi}]")
+    # a level reads and writes both planes once: 16 bytes an element
+    phase("time", f"n={n} mergepath per level, run: ms (TB/s): " + ", ".join(
+        f"{tile << i}: {t:.4f} ({16 * n / t / 1e9:.3f})" for i, t in enumerate(level_ms))
+        + f" [{smi}]")
+    # the host's side of one level: its enqueue time against the device's
+    # time over the same back-to-back calls (equal when the host bounds it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        merge.mergepath_level(runs0, 1, tile)
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    dev_us = time_batched_ms(lambda: merge.mergepath_level(runs0, 1, tile)) * 1e3
+    phase("time", f"n={n} first mergepath level, 100 back-to-back calls: host {host_us:.1f} us "
+                  f"to enqueue a call, device window {dev_us:.1f} us a call [{smi}]")
+    del runs0
 
     e2e = in_turns(lambda b: lambda k: vt.sort_pairs(k, values, backend=b), keys,
                    {"torch.sort": "tiled", "merge": "merge", "radix_tiled": "radix_tiled"})
@@ -747,6 +770,112 @@ def time_main_path(dev, n: int, smi: str):
                       f"({n / (min(runs) / 1e3) / 1e6:.1f} M pairs/s best) [{smi}]")
     library_ms = {"tilesort": library_ms, "mergepath": merge_library_ms}
     return ms, plain_ms, err, library_ms, len(level_ms)
+
+
+def merge_tile_sweep(dev, smi: str) -> dict:
+    """The tile sort's tile swept, 8192 against 16384, at 1e8 random u32
+    pairs: the kernel alone and the whole ``sort_pairs`` on the merge route
+    in turns, with the sorted results bitwise equal across tiles; and the
+    merge kernel's output tile, 4096 against 8192, summed over the levels of
+    the default ladder, each level's results bitwise equal. Returns
+    {"tilesort": {tile: ms}, "sort_pairs": {tile: [ms...]}, "mergepath":
+    {out_tile: ms}}."""
+    keys = random_u32(dev, N_MAIN, SEED + 11)
+    values = torch.arange(N_MAIN, dtype=torch.int32, device=dev)
+    planes = [keys.view(torch.int32) ^ _MIN32, values]
+    sweep = {"tilesort": {}, "sort_pairs": {}, "mergepath": {}}
+    outs = []
+    for tile in (8192, 16384):
+        sweep["tilesort"][tile] = time_ms(lambda: merge.tilesort(planes, 1, tile))
+        outs.append(vt.sort_pairs(keys, values.view(torch.uint32),
+                                  config=vt.SortConfig(tile=tile)))
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(outs[0], outs[1])):
+        raise AssertionError("the merge route's result depends on the tile-sort tile")
+    del outs
+    e2e = in_turns(lambda t: lambda k: vt.sort_pairs(k, values.view(torch.uint32),
+                                                     config=vt.SortConfig(tile=t)),
+                   keys, {8192: 8192, 16384: 16384})
+    sweep["sort_pairs"] = e2e
+    tile = merge.default_tile(1, dev)
+    cur, run = merge.tilesort(planes, 1, tile), tile
+    sweep["mergepath"] = {4096: 0.0, 8192: 0.0}
+    while run < N_MAIN:
+        got = [merge.mergepath_level(cur, 1, run, out_tile=t) for t in (4096, 8192)]
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise AssertionError(f"the merge level of run {run} depends on its output tile")
+        for t in (4096, 8192):
+            sweep["mergepath"][t] += time_ms(lambda: merge.mergepath_level(cur, 1, run, out_tile=t),
+                                             reps=3)
+        cur, run = got[0], 2 * run
+        del got
+    phase("time", f"tile sweep n={N_MAIN} stable u32 kv: tilesort " + ", ".join(
+        f"tile {t} {ms:.4f} ms" for t, ms in sweep["tilesort"].items())
+        + "; whole sort_pairs on the merge route " + ", ".join(
+        f"tile {t} {' / '.join(f'{x:.3f}' for x in v)} ms" for t, v in e2e.items())
+        + f", results bitwise equal; the default takes {tile}; mergepath levels summed, "
+        + ", ".join(f"out_tile {t} {ms:.4f} ms" for t, ms in sweep["mergepath"].items())
+        + f", results bitwise equal [{smi}]")
+    return sweep
+
+
+def check_coranks(dev) -> None:
+    """The co-rank mirror against the kernel's own splits at one level of the
+    1e8 ladder (runs of 2^20): the kernel merges the level's keys carrying
+    each element's position in its input, so every output shows whether it
+    came from its pair's A run; the co-rank of an output tile is how many of
+    the pair's outputs before it did. ``coranks_plain`` must give exactly
+    these, tile by tile."""
+    run = 1 << 20
+    keys = segsort.to_signed_order(random_u32(dev, N_MAIN, SEED + 12))
+    r = merge.default_tile(1, dev)
+    runs = merge.tilesort([keys], 1, r)
+    while r < run:  # the levels below 2^20
+        runs, r = merge.mergepath_level(runs, 1, r), 2 * r
+    pos = torch.arange(N_MAIN, dtype=torch.int32, device=dev)
+    out_tile = merge.MERGE_TILE
+    _, src = merge.mergepath_level([runs[0], pos], 1, run, out_tile=out_tile)
+    idx = torch.arange(N_MAIN, device=dev)
+    pair0 = idx // (2 * run) * (2 * run)
+    from_a = (src.to(torch.int64) < pair0 + run).to(torch.int64)
+    before = torch.cumsum(from_a, 0) - from_a  # A outputs before each index, from 0
+    starts = torch.arange(0, N_MAIN, out_tile, device=dev)
+    kernel_splits = before[starts] - before[pair0[starts]]
+    mirror = merge.coranks_plain(runs, 1, run, out_tile)
+    same = torch.equal(mirror, kernel_splits)
+    phase("compare", f"co-ranks at run {run}, {starts.numel()} output tiles of {out_tile}: "
+                     f"coranks_plain equal to the kernel's splits: {same}")
+    if not same:
+        raise AssertionError("the co-rank mirror disagrees with the kernel's splits")
+
+
+def check_past_2_31(dev) -> None:
+    """n = 2^31 + 4097 keys, one plane, no carry: the tile sort's last three
+    tiles (the last ragged, 4097 elements past 2^31) and the merge level of
+    runs of one tile on its output, held on its last two run pairs (a whole
+    pair ending at 2^31 and the lone run past it), each against its plain
+    version run on that slice alone: tiles and run pairs are independent,
+    so the slices are exact."""
+    n = (1 << 31) + 4097
+    tile = merge.default_tile(1, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    keys[::7] = 2**31 - 1  # ties at the top of the signed order
+    merge.tilesort.launches = merge.mergepath_level.launches = 0
+    (tiled,) = merge.tilesort([keys], 1, tile)
+    lo = (cdiv(n, tile) - 3) * tile
+    e_tile = max_abs_err([tiled[lo:]], merge.tilesort_plain([keys[lo:]], 1, tile))
+    del keys
+    (level,) = merge.mergepath_level([tiled], 1, tile)
+    lo = (1 << 31) - 2 * tile
+    e_merge = max_abs_err([level[lo:]], merge.mergepath_level_plain([tiled[lo:]], 1, tile))
+    torch.cuda.synchronize()
+    phase("compare", f"n={n} (2^31 + 4097) one key plane: tilesort tile {tile}, last 3 tiles "
+                     f"from {(cdiv(n, tile) - 3) * tile}: max_abs_err {e_tile}; mergepath run "
+                     f"{tile}, last 2 run pairs from {lo}: max_abs_err {e_merge}; launches "
+                     f"{merge.tilesort.launches} + {merge.mergepath_level.launches}")
+    if e_tile or e_merge:
+        raise AssertionError("the merge kernels disagree with their plain versions past 2^31")
 
 
 def main() -> None:
@@ -835,6 +964,9 @@ def main() -> None:
     for n in (N_SMALL, N_MAIN):
         ms, plain_ms, e, merge_library_ms, nlevels = time_main_path(dev, n, smi)
         err = {k: max(err[k], e.get(k, 0)) for k in err}
+    merge_tile_sweep(dev, smi)
+    check_coranks(dev)
+    check_past_2_31(dev)
 
     # --- 8. and 9. the bitonic and samplesort paths
     err["bitonic"] = compare_bitonic(dev, rng)

@@ -53,9 +53,26 @@ def _equal(got, want):
         assert g.device == w.device and torch.equal(g, w)
 
 
+def _tie_planes(rng, n, nck, ncarry, kind, dev):
+    """Compare planes of one kind of tie-heavy keys: "equal" (every key
+    alike), "two" (two values) or "sentinel" (INT32_MIN and INT32_MAX, the
+    ends of the signed order), and random carry planes."""
+    i32 = np.iinfo(np.int32)
+    if kind == "equal":
+        keys = [np.full(n, 7, np.int32) for _ in range(nck)]
+    elif kind == "two":
+        keys = [rng.integers(0, 2, size=n).astype(np.int32) for _ in range(nck)]
+    else:
+        keys = [np.where(rng.random(n) < 0.5, i32.min, i32.max).astype(np.int32)
+                for _ in range(nck)]
+    carry = [rng.integers(-(2**31), 2**31, size=n).astype(np.int32) for _ in range(ncarry)]
+    return [torch.from_numpy(x).to(dev) for x in keys + carry]
+
+
 @pytest.mark.parametrize("nck,ncarry", COMBOS)
 @pytest.mark.parametrize("n,tile", [(1, 2), (4096, 4096), (3 * 8192 + 5, 8192),
-                                    (2 * 16384 + 1, 16384), (1000, 64)])
+                                    (2 * 16384 + 1, 16384), (1000, 64), (8191, 8192),
+                                    (16385, 16384)])
 def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
     rng = np.random.default_rng(n + 10 * nck + ncarry)
     planes = _planes(rng, n, nck, ncarry, dev)
@@ -67,7 +84,9 @@ def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
 
 @pytest.mark.parametrize("nck,ncarry", COMBOS)
 @pytest.mark.parametrize("n,run", [(5, 2), (3000, 256), (5 * 4096 + 3, 4096),
-                                   (3 * 16384, 16384), (40000, 32768)])
+                                   (3 * 16384, 16384), (40000, 32768),
+                                   (4 * 4096 + 100, 4096),  # a lone last run of 100
+                                   (2 * 16384 - 1, 16384), (4097, 4096)])
 def test_mergepath_kernel_matches_plain(dev, nck, ncarry, n, run):
     rng = np.random.default_rng(n + run + nck)
     runs = merge.tilesort_plain(_planes(rng, n, nck, ncarry, dev), nck, run)
@@ -77,20 +96,83 @@ def test_mergepath_kernel_matches_plain(dev, nck, ncarry, n, run):
     _equal(got, merge.mergepath_level_plain(runs, nck, run))
 
 
+@pytest.mark.parametrize("nck,ncarry", COMBOS)
+@pytest.mark.parametrize("kind", ["equal", "two", "sentinel"])
+def test_merge_kernels_on_tie_heavy_keys(dev, nck, ncarry, kind):
+    # the tile sort, then every merge level, each bitwise against its plain
+    # version on the same input; ragged, so the last run pair is partial
+    rng = np.random.default_rng(nck * 10 + ncarry)
+    n = 5 * 8192 + 77
+    planes = _tie_planes(rng, n, nck, ncarry, kind, dev)
+    cur = merge.tilesort(planes, nck, 8192)
+    _equal(cur, merge.tilesort_plain(planes, nck, 8192))
+    run = 8192
+    while run < n:
+        nxt = merge.mergepath_level(cur, nck, run)
+        _equal(nxt, merge.mergepath_level_plain(cur, nck, run))
+        cur, run = nxt, 2 * run
+
+
+@pytest.mark.parametrize("nck,ncarry", [(1, 1), (2, 2)])
+def test_merge_tiles_do_not_change_the_result(dev, nck, ncarry):
+    # tile-sort tiles 8192 and 16384, merge output tiles 4096 and 8192: one
+    # stable result, the plain one
+    rng = np.random.default_rng(40 + nck)
+    n = 9 * 16384 + 5
+    planes = _planes(rng, n, nck, ncarry, dev)
+    want = merge.sort_merge_planes([p.cpu() for p in planes], nck, tile=8192)
+    for tile in (8192, 16384):
+        _equal([p.cpu() for p in merge.sort_merge_planes(planes, nck, tile=tile)], want)
+    runs = merge.tilesort(planes, nck, 16384)
+    level = merge.mergepath_level_plain(runs, nck, 16384)
+    optin = vt.GPUContext(dev).info.smem_per_block_optin
+    for out_tile in (4, 4096, 8192):
+        if merge.mergepath_smem(len(runs), out_tile) > optin:
+            with pytest.raises(ValueError, match="shared memory"):
+                merge.mergepath_level(runs, nck, 16384, out_tile=out_tile)
+            continue
+        _equal(merge.mergepath_level(runs, nck, 16384, out_tile=out_tile), level)
+
+
+@pytest.mark.parametrize("nck,ncarry", [(1, 1), (2, 2)])
+def test_mergepath_kernel_takes_unaligned_planes(dev, nck, ncarry):
+    # planes that start 4 bytes past a 16-byte line: every window's head and
+    # tail go by plain loads around the bulk copies
+    rng = np.random.default_rng(50 + nck)
+    n = 3 * 4096 + 11
+    base = _planes(rng, n + 1, nck, ncarry, dev)
+    for b, r in zip(base, merge.tilesort_plain([p[1:] for p in base], nck, 2048)):
+        b[1:] = r
+    shifted = [p[1:] for p in base]
+    assert all(p.data_ptr() % 16 == 4 for p in shifted)
+    _equal(merge.mergepath_level(shifted, nck, 2048), merge.mergepath_level_plain(
+        [p.clone() for p in shifted], nck, 2048))
+
+
 def test_kernel_path_never_takes_the_plain_versions(dev, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    monkeypatch.setattr(merge, "tilesort_plain", refuse)
-    monkeypatch.setattr(merge, "mergepath_level_plain", refuse)
+    for name in ("tilesort_plain", "mergepath_level_plain", "coranks_plain",
+                 "level_splits_plain"):
+        monkeypatch.setattr(merge, name, refuse)
     rng = np.random.default_rng(7)
     n = (1 << 20) + 3
     keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
+    before = (merge.tilesort.launches, merge.mergepath_level.launches)
     ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev))
+    assert merge.tilesort.launches == before[0] + 1 and merge.mergepath_level.launches > before[1]
     perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+    # two key planes and two carry planes through the engine itself
+    k64 = rng.integers(0, 50, size=n, dtype=np.uint64) << np.uint64(40)
+    v64 = rng.standard_normal(n)
+    ok, (ov,) = merge.sort_merge(torch.from_numpy(k64).to(dev), (torch.from_numpy(v64).to(dev),))
+    perm = np.argsort(k64, kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), k64[perm])
+    np.testing.assert_array_equal(ov.cpu().numpy(), v64[perm])
 
 
 @pytest.mark.parametrize("key_dtype,payloads", [
@@ -145,8 +227,12 @@ def test_gpu_context(dev):
     assert info.smem_per_block_optin >= 48 * 1024
     assert info.smem_per_sm >= info.smem_per_block_optin
     for nck in (1, 2):
-        need = 4 * (nck + 1) * merge.default_tile(nck, dev) + merge.SMEM_RESERVED_PER_BLOCK
-        assert 2 * need <= info.smem_per_sm
+        tile = merge.default_tile(nck, dev)
+        assert merge.tilesort_smem(nck, tile) <= info.smem_per_block_optin
+        assert tile == merge.TILESORT_MAX_TILE or (
+            merge.tilesort_smem(nck, 2 * tile) > info.smem_per_block_optin)
+        for nplanes in (1, 2, 3, 4):
+            assert merge.mergepath_smem(nplanes, merge.MERGE_TILE) <= info.smem_per_block_optin
 
 
 def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):

@@ -71,6 +71,53 @@ def test_level_splits_match_jax(rng, nck, run):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("nck", [1, 2])
+@pytest.mark.parametrize("run", [T, 2 * T, 4 * T])
+def test_coranks_match_jax(rng, nck, run):
+    # the kernel's 32-probe search, mirrored, against the JAX engine's
+    # binary search (_level_splits) and the plain split points
+    n = 6 * T + 1234
+    planes = _runs_sorted(rng, n, run, nck)
+    npad = -(-n // T) * T
+    buflen = npad + 2 * T
+    meta = np.asarray(
+        jmerge._level_splits(_jax_layout(planes, run, npad, buflen), nck, run, T, npad,
+                             buflen // T)
+    )
+    ntiles = -(-n // T)
+    run_a = np.arange(ntiles) * T // (2 * run) * (2 * run)
+    want = meta[:ntiles, 0] + meta[:ntiles, 1] - run_a
+    tplanes = [torch.from_numpy(p) for p in planes]
+    got = merge.coranks_plain(tplanes, nck, run, T)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), merge.level_splits_plain(tplanes, nck, run, T))
+
+
+def _tie_runs(rng, n, run, nck, kind):
+    """nck int32 planes of one kind of tie-heavy keys, each run sorted:
+    "equal" (all alike), "two" (two values), "sentinel" (INT32_MIN and
+    INT32_MAX only)."""
+    if kind == "equal":
+        planes = [np.full(n, -5, np.int32) for _ in range(nck)]
+    elif kind == "two":
+        planes = [rng.integers(0, 2, size=n).astype(np.int32) for _ in range(nck)]
+    else:
+        planes = [np.where(rng.random(n) < 0.5, np.iinfo(np.int32).min, I32_MAX).astype(np.int32)
+                  for _ in range(nck)]
+    return merge.tilesort_plain([torch.from_numpy(p) for p in planes], nck, run)
+
+
+@pytest.mark.parametrize("nck", [1, 2])
+@pytest.mark.parametrize("kind", ["equal", "two", "sentinel"])
+@pytest.mark.parametrize("run,tile", [(64, 64), (256, 64), (1024, 128), (4096, 4)])
+def test_coranks_on_tie_heavy_keys(rng, nck, kind, run, tile):
+    # runs from the output tile up; ragged, with a partial last pair
+    n = 5 * run + 37
+    planes = _tie_runs(rng, n, run, nck, kind)
+    got = merge.coranks_plain(planes, nck, run, tile)
+    assert torch.equal(got, merge.level_splits_plain(planes, nck, run, tile))
+
+
 @pytest.fixture(scope="module")
 def jax_engine_u64_kv():
     """u64 keys with heavy ties and keys equal to the pad sentinel (both
@@ -133,6 +180,23 @@ def test_sort_merge_matches_jax_tiled(rng, n, key_dtype, payloads):
         np.testing.assert_array_equal(o.numpy(), np.asarray(j))
 
 
+@pytest.mark.parametrize("key_dtype,payloads", [(np.uint32, (np.uint32,)),
+                                                (np.uint64, (np.float32, np.int32))])
+def test_default_tile_matches_jax_tiled(rng, key_dtype, payloads):
+    # the default tile (16384) through two merge levels gives the JAX
+    # package's stable result
+    n = 2 * 16384 + 5
+    keys = rng.integers(0, 64, size=n).astype(key_dtype)
+    keys[rng.random(n) < 0.1] = np.iinfo(key_dtype).max
+    vals = [rng.integers(0, 1 << 30, size=n).astype(d) for d in payloads]
+    assert merge.default_tile(keys.itemsize // 4, torch.device("cpu")) == 16384
+    out_k, out_v = merge.sort_merge(torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals))
+    jk, jv = vk.sort_pairs(jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals), backend="tiled")
+    np.testing.assert_array_equal(out_k.numpy(), np.asarray(jk))
+    for o, j in zip(out_v, jv):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(j))
+
+
 def test_plain_kernels_compose_to_stable_sort(rng):
     # the plain tile sort and every plain merge level, driven by hand, give
     # numpy's stable order; tile 4096 over 5 tiles -> 3 merge levels
@@ -154,15 +218,22 @@ def test_plain_kernels_compose_to_stable_sort(rng):
 
 
 def test_default_tile_from_shared_memory():
-    # the largest power of two whose key planes + position plane fit the
-    # H100's 233,472 B per SM twice over (1 KB reserved per block), so two
-    # tile-sort blocks share an SM
+    # the largest power of two whose slots (8 bytes an element for one key
+    # plane, 10 for two) and digit counters (1 KB per warp of 16 x 32
+    # elements) fit one block's 232,448 B on the H100, within 1024 threads
     cpu = torch.device("cpu")
-    assert merge.default_tile(1, cpu) == 8192
-    assert merge.default_tile(2, cpu) == 8192
+    assert merge.default_tile(1, cpu) == 16384
+    assert merge.default_tile(2, cpu) == 16384
+    assert merge.tilesort_smem(1, 8192) == 80 * 1024
+    assert merge.tilesort_smem(1, 16384) == 160 * 1024
+    assert merge.tilesort_smem(2, 16384) == 192 * 1024
+    assert merge.tilesort_smem(1, 64) == 512 + 8 * 1024  # 256 threads at least
     for nck in (1, 2):
-        need = [4 * (nck + 1) * t + merge.SMEM_RESERVED_PER_BLOCK for t in (8192, 16384)]
-        assert 2 * need[0] <= merge.H100_SMEM_PER_SM < 2 * need[1]
+        assert merge.tilesort_smem(nck, 16384) <= merge.H100_SMEM_PER_BLOCK_OPTIN
+        assert 2 * 16384 > merge.TILESORT_MAX_TILE
+    # the merge kernel's output tile: two staged tiles of every plane fit
+    for nplanes in (1, 2, 3, 4):
+        assert merge.mergepath_smem(nplanes, merge.MERGE_TILE) <= merge.H100_SMEM_PER_BLOCK_OPTIN
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

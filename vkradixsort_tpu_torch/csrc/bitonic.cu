@@ -41,8 +41,8 @@
 //     of every load and store hit 32 banks.
 //   - payloads never enter the network: gather_kernel moves each one (4 or
 //     8 bytes, any number of them, one launch each) by the final positions.
-// The compare, the padding and the total order are network.cuh's, shared
-// with the tile sort. thread_base and swizzle are mirrored in
+// The compare, the padding and the total order are network.cuh's.
+// thread_base and swizzle are mirrored in
 // ops/bitonic.py, whose plain torch run of the schedule the CPU tests hold
 // against the network. Offsets into the planes are 64-bit.
 #include <algorithm>

@@ -66,56 +66,11 @@ constexpr int kFusedMaxN = 1 << 15;  // positions fit 15 bits (ops/fused.py MAX_
 constexpr int kFusedPerBlock = kFusedMaxN / kFusedCtas;      // elements a block holds at most
 constexpr int kFusedStrips = kFusedPerBlock / kFusedThreads;  // elements a thread holds
 
-// An element in shared memory: key and position in one slot, so that the
-// scatter moves it with one store.
-template <typename K>
-struct Slot;
-template <>
-struct Slot<unsigned> {
-  using T = unsigned long long;  // position << 32 | key
-  __device__ static T pack(unsigned k, int pos) { return (static_cast<T>(pos) << 32) | k; }
-  __device__ static unsigned key(T s) { return static_cast<unsigned>(s); }
-  __device__ static int pos(T s) { return static_cast<int>(s >> 32); }
-};
-template <>
-struct Slot<unsigned long long> {
-  using T = ulonglong2;  // {key, position}
-  __device__ static T pack(unsigned long long k, int pos) {
-    return make_ulonglong2(k, static_cast<unsigned long long>(pos));
-  }
-  __device__ static unsigned long long key(T s) { return s.x; }
-  __device__ static int pos(T s) { return static_cast<int>(s.y); }
-};
-
+// Slot (radix.cuh): key and position in one slot, so that the scatter moves
+// it with one store.
 template <typename K>
 constexpr int fused_smem_bytes() {
   return kFusedPerBlock * static_cast<int>(sizeof(typename Slot<K>::T));
-}
-
-template <typename K>
-__device__ __forceinline__ unsigned digit_of(K k, int shift) {
-  return static_cast<unsigned>(k >> shift) & (kBins - 1);
-}
-
-// radix.cuh's strip_rank with the lanes of equal digit found by eight ballots,
-// one per digit bit, in place of __match_any_sync, whose throughput bounds a
-// pass when one SM ranks many strips: the same peers, so the same stable
-// rank. Every lane of the warp calls it together; `counter` is the warp's.
-__device__ __forceinline__ int strip_rank_ballot(int* counter, unsigned d, bool valid) {
-  unsigned peers = __ballot_sync(0xffffffffu, valid);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const bool bit = (d >> b) & 1u;
-    const unsigned vote = __ballot_sync(0xffffffffu, bit);
-    peers &= bit ? vote : ~vote;
-  }
-  const unsigned lane = threadIdx.x & 31;
-  const int rank = __popc(peers & ((1u << lane) - 1u));
-  const int start = valid ? counter[d] : 0;
-  __syncwarp();  // every lane has read counter[d] before its group's first lane moves it
-  if (valid && rank == 0) counter[d] = start + __popc(peers);
-  __syncwarp();
-  return start + rank;
 }
 
 // Position of strip s's element, two 16-bit positions to a register.

@@ -1,6 +1,8 @@
 // Primitives shared by the radix kernels (histogram.cu, radix_dest.cu,
-// fused.cu): an 8-bit digit of a key, and the stable rank of a warp's
-// elements among equal digits (fused.cu finds the same rank by ballots).
+// fused.cu, tilesort.cu): an 8-bit digit of a key, an element packed with
+// its position in one shared-memory slot, and the stable rank of a warp's
+// elements among equal digits, found by __match_any_sync (strip_rank) or by
+// eight ballots (strip_rank_ballot).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +18,33 @@ __device__ __forceinline__ unsigned digit_at(const int* x, long long i, int stri
   return (static_cast<unsigned>(x[i * stride]) >> shift) & (kBins - 1);
 }
 
+// Digit (k >> shift) & 255 of an unsigned key.
+template <typename K>
+__device__ __forceinline__ unsigned digit_of(K k, int shift) {
+  return static_cast<unsigned>(k >> shift) & (kBins - 1);
+}
+
+// An element in shared memory: an unsigned key and its position in one
+// slot, so that a scatter moves it with one store.
+template <typename K>
+struct Slot;
+template <>
+struct Slot<unsigned> {
+  using T = unsigned long long;  // position << 32 | key
+  __device__ static T pack(unsigned k, int pos) { return (static_cast<T>(pos) << 32) | k; }
+  __device__ static unsigned key(T s) { return static_cast<unsigned>(s); }
+  __device__ static int pos(T s) { return static_cast<int>(s >> 32); }
+};
+template <>
+struct Slot<unsigned long long> {
+  using T = ulonglong2;  // {key, position}
+  __device__ static T pack(unsigned long long k, int pos) {
+    return make_ulonglong2(k, static_cast<unsigned long long>(pos));
+  }
+  __device__ static unsigned long long key(T s) { return s.x; }
+  __device__ static int pos(T s) { return static_cast<int>(s.y); }
+};
+
 // One 32-element strip of a warp's elements, in element order: every lane
 // of the warp calls this together, `valid` lanes with their element's digit
 // `d`. Returns counter[d] plus the number of lower lanes with the same digit
@@ -23,6 +52,27 @@ __device__ __forceinline__ unsigned digit_at(const int* x, long long i, int stri
 // elements of that digit. `counter` belongs to this warp alone.
 __device__ __forceinline__ int strip_rank(int* counter, unsigned d, bool valid) {
   const unsigned peers = __match_any_sync(0xffffffffu, valid ? d : kNoDigit);
+  const unsigned lane = threadIdx.x & 31;
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int start = valid ? counter[d] : 0;
+  __syncwarp();  // every lane has read counter[d] before its group's first lane moves it
+  if (valid && rank == 0) counter[d] = start + __popc(peers);
+  __syncwarp();
+  return start + rank;
+}
+
+// strip_rank with the lanes of equal digit found by eight ballots, one per
+// digit bit, in place of __match_any_sync, whose throughput bounds a pass
+// when one SM ranks many strips: the same peers, so the same stable rank.
+// Every lane of the warp calls it together; `counter` is the warp's.
+__device__ __forceinline__ int strip_rank_ballot(int* counter, unsigned d, bool valid) {
+  unsigned peers = __ballot_sync(0xffffffffu, valid);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (d >> b) & 1u;
+    const unsigned vote = __ballot_sync(0xffffffffu, bit);
+    peers &= bit ? vote : ~vote;
+  }
   const unsigned lane = threadIdx.x & 31;
   const int rank = __popc(peers & ((1u << lane) - 1u));
   const int start = valid ? counter[d] : 0;

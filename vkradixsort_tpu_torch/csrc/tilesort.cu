@@ -4,55 +4,217 @@
 // _tilesort_call), the bitonic network that sorts each T-element tile of
 // int32 planes in VMEM.
 //
-// What bounds it on an H100: not device memory (one read and one write of
-// each plane per element) but the network inside the tile, log2(T) *
-// (log2(T) + 1) / 2 compare-exchange stages over shared memory with a block
-// barrier between stages, and the 227 KB of shared memory a block may hold.
+// What bounds it on an H100: device memory bounds it at 16 bytes an element
+// for one key and one carry plane (0.48 ms for 1e8 at 3.35 TB/s), but a
+// sorting network in shared memory is far from that: at 8192, 91
+// barrier-separated stages of one compare-exchange per thread, with bank
+// conflicts below distance 32, about 45 compare-exchanges an element. A
+// stable radix rank costs a few instructions an element per 8-bit digit;
+// what is left bounding the sort is the chain of each pass (count, scan,
+// rank, scatter, read back, with a block barrier between) and, with one
+// block an SM at 16384, the tile's load and store, which no other block on
+// the SM overlaps.
 //
-// Design: one block per tile. The compare planes are staged in shared memory
-// beside each element's in-tile position, and the network sorts
-// lexicographically on (key planes..., position). Positions are distinct, so
-// the order is strict and total and the bitonic network yields exactly the
-// stable order: tiles are cut from the input in input order, so in-tile
-// position is the stable tie-break (the TPU kernel's synthetic XOR tie plane
-// only undid the descending blocks its seeded, chunked network left behind).
-// The ragged last tile is padded in shared memory with (INT32_MAX, position);
-// pads carry positions past every real element, so real keys equal to
-// INT32_MAX still sort first. Every run is stored ascending. Carry planes
-// never enter shared memory: after the sort each thread gathers
-// carry[tile_base + position] for its outputs, a read that stays inside the
-// tile's own span of the carry plane. Global offsets are 64-bit. The
-// compare-exchange network and the padding are network.cuh's, shared with
-// the bitonic engine.
+// Design: an in-block stable LSD radix sort, the fused kernel's pass
+// structure (fused.cu) in one block, with no cluster. One block per tile,
+// tile / 16 threads (at least 256), 16 elements a thread:
+//   - load once: warp w owns tile elements [512 w, 512 w + 512), a thread
+//     its lane of each 32-element strip, into registers, each key turned to
+//     unsigned order (sign bit flipped; two key planes as one 64-bit key,
+//     high plane on top) beside its in-tile position. Elements past the
+//     input's end take no part in any pass, so the ragged last tile needs no
+//     padding;
+//   - 8-bit passes, low digit first (4 for one key plane, 8 for two): each
+//     warp counts its digits in its own row of shared memory; 256 threads
+//     scan the digits over the warps; each warp ranks its strips in element
+//     order (radix.cuh: strip_rank_ballot, the fused sort's rank) and
+//     scatters key and position into the block's shared memory (one key
+//     plane: one store of both, packed in one slot); every thread then reads
+//     its elements of the next pass back into registers;
+//   - after the last pass each thread writes the sorted keys coalesced and
+//     gathers each carry plane by the final positions, a read that stays
+//     inside the tile's own span of the plane.
+// An LSD radix sort keeps equal keys in their input order, so in-tile
+// position is the tie-break without entering any compare, and the result is
+// the one stable order. Every run is stored ascending. Shared memory: the
+// slots (8 bytes an element for one key plane, 10 for two) and the warps'
+// counters (1 KB a warp): 80 KB at 8192 with one key plane, 160 KB at
+// 16384. Global offsets are 64-bit.
 #include <algorithm>
+#include <type_traits>
 
-#include "network.cuh"
 #include "planes.cuh"
+#include "radix.cuh"
 
 namespace vkrs {
 namespace {
 
-constexpr int kTileThreads = 1024;
+constexpr int kTilePer = 16;                  // elements a thread holds
+constexpr int kTileWarpSpan = 32 * kTilePer;  // elements a warp holds
+constexpr int kTileMinThreads = kBins;        // one thread per digit in the scan
+constexpr int kTileMaxThreads = 1024;
+constexpr unsigned kSignBit = 0x80000000u;
+
+// Key of an element in unsigned order: the signed planes' lexicographic
+// order is the unsigned order of the planes with their sign bits flipped.
+template <int NCK>
+using TileKey = std::conditional_t<NCK == 1, unsigned, unsigned long long>;
+
+template <int NCK>
+__device__ __forceinline__ TileKey<NCK> load_key(const Planes& P, long long i) {
+  const unsigned hi = static_cast<unsigned>(P.in[0][i]) ^ kSignBit;
+  if constexpr (NCK == 1) {
+    return hi;
+  } else {
+    const unsigned lo = static_cast<unsigned>(P.in[1][i]) ^ kSignBit;
+    return (static_cast<unsigned long long>(hi) << 32) | lo;
+  }
+}
+
+template <int NCK>
+__device__ __forceinline__ void store_key(const Planes& P, long long i, TileKey<NCK> k) {
+  if constexpr (NCK == 1) {
+    P.out[0][i] = static_cast<int>(k ^ kSignBit);
+  } else {
+    P.out[0][i] = static_cast<int>(static_cast<unsigned>(k >> 32) ^ kSignBit);
+    P.out[1][i] = static_cast<int>(static_cast<unsigned>(k) ^ kSignBit);
+  }
+}
+
+// Position of strip s's element, two 16-bit positions to a register.
+__device__ __forceinline__ int tile_pos(const unsigned (&pos2)[kTilePer / 2], int s) {
+  return static_cast<int>((pos2[s >> 1] >> (16 * (s & 1))) & 0xFFFFu);
+}
+
+// The tile in shared memory between passes: one key plane packs key and
+// position in one 8-byte slot (radix.cuh: Slot), so that the scatter moves
+// an element with one store; two key planes keep the 64-bit keys and the
+// 16-bit positions in two arrays (10 bytes an element), so that a tile of
+// 16384 fits one block.
+template <int NCK>
+struct TileSlots;
+template <>
+struct TileSlots<1> {
+  using S = Slot<unsigned>;
+  S::T* slot;
+  __device__ explicit TileSlots(unsigned char* smem, int) : slot(reinterpret_cast<S::T*>(smem)) {}
+  static constexpr int kBytes = sizeof(S::T);
+  __device__ void put(int i, unsigned k, int pos) const { slot[i] = S::pack(k, pos); }
+  __device__ void get(int i, unsigned& k, int& pos) const {
+    const S::T v = slot[i];
+    k = S::key(v);
+    pos = S::pos(v);
+  }
+};
+template <>
+struct TileSlots<2> {
+  unsigned long long* key;
+  unsigned short* pos;
+  __device__ TileSlots(unsigned char* smem, int tile)
+      : key(reinterpret_cast<unsigned long long*>(smem)),
+        pos(reinterpret_cast<unsigned short*>(smem + 8 * static_cast<size_t>(tile))) {}
+  static constexpr int kBytes = 10;
+  __device__ void put(int i, unsigned long long k, int p) const {
+    key[i] = k;
+    pos[i] = static_cast<unsigned short>(p);
+  }
+  __device__ void get(int i, unsigned long long& k, int& p) const {
+    k = key[i];
+    p = pos[i];
+  }
+};
 
 template <int NCK, int NCARRY>
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileMaxThreads)
     tilesort_kernel(Planes P, long long n, int tile) {
-  extern __shared__ int smem[];
-  int* sk = smem;                // NCK planes of `tile` keys
-  int* spos = smem + NCK * tile;  // in-tile positions
+  using K = TileKey<NCK>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileSlots<NCK> slots(smem, tile);  // the tile, between passes
+  int* count = reinterpret_cast<int*>(smem + static_cast<size_t>(tile) * TileSlots<NCK>::kBytes);
+  __shared__ int warp_sum[kTileMinThreads / 32];
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const long long base = static_cast<long long>(blockIdx.x) * tile;
   const int valid = static_cast<int>(min(static_cast<long long>(tile), n - base));
+  const int first = warp * kTileWarpSpan + lane;  // strip s's element: first + 32 s
+  int* my_count = count + warp * kBins;
 
-  stage_padded<NCK>(P.in, sk, spos, base, valid, tile, 0);
-  __syncthreads();
-  // gbase 0: directions from the in-tile index, so every run ends ascending
-  for (int size = 2; size <= tile; size <<= 1) tile_stages<NCK>(sk, spos, tile, 0, size, size >> 1);
-
-  // the first `valid` sorted entries are exactly the tile's real elements
-  for (int i = threadIdx.x; i < valid; i += blockDim.x) {
+  K key[kTilePer];
+  unsigned pos2[kTilePer / 2];
 #pragma unroll
-    for (int k = 0; k < NCK; ++k) P.out[k][base + i] = sk[k * tile + i];
-    const long long src = base + spos[i];
+  for (int s = 0; s < kTilePer; ++s) {
+    const int i = first + 32 * s;
+    key[s] = i < valid ? load_key<NCK>(P, base + i) : K(0);
+  }
+#pragma unroll
+  for (int s = 0; s < kTilePer; s += 2) {
+    pos2[s >> 1] = static_cast<unsigned>(first + 32 * s) |
+                   (static_cast<unsigned>(first + 32 * (s + 1)) << 16);
+  }
+
+  constexpr int kPasses = 4 * NCK;
+  for (int p = 0; p < kPasses; ++p) {
+    const int shift = 8 * p;
+    for (int i = threadIdx.x; i < nwarps * kBins; i += blockDim.x) count[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kTilePer; ++s) {
+      if (first + 32 * s < valid) atomicAdd(&my_count[digit_of(key[s], shift)], 1);
+    }
+    __syncthreads();
+
+    // one thread per digit (warps 0-7): the digit's start, then each warp's
+    int total = 0, inc = 0;
+    if (threadIdx.x < kBins) {
+      for (int w = 0; w < nwarps; ++w) total += count[w * kBins + threadIdx.x];
+      inc = total;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      if (lane == 31) warp_sum[warp] = inc;
+    }
+    __syncthreads();
+    if (threadIdx.x < kBins) {
+      int run = inc - total;
+      for (int w = 0; w < warp; ++w) run += warp_sum[w];
+      for (int w = 0; w < nwarps; ++w) {
+        const int c = count[w * kBins + threadIdx.x];
+        count[w * kBins + threadIdx.x] = run;
+        run += c;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int s = 0; s < kTilePer; ++s) {
+      const bool ok = first + 32 * s < valid;
+      const unsigned d = ok ? digit_of(key[s], shift) : kNoDigit;
+      const int at = strip_rank_ballot(my_count, d, ok);
+      if (ok) slots.put(at, key[s], tile_pos(pos2, s));
+    }
+    __syncthreads();  // the scatter is complete
+
+    if (p + 1 < kPasses) {
+#pragma unroll
+      for (int s = 0; s < kTilePer; s += 2) {
+        int lo = 0, hi = 0;
+        if (first + 32 * s < valid) slots.get(first + 32 * s, key[s], lo);
+        if (first + 32 * (s + 1) < valid) slots.get(first + 32 * (s + 1), key[s + 1], hi);
+        pos2[s >> 1] = static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+      }
+    }
+  }
+
+  // the first `valid` slots hold the tile's elements in stable order
+  for (int i = threadIdx.x; i < valid; i += blockDim.x) {
+    K k;
+    int pos;
+    slots.get(i, k, pos);
+    store_key<NCK>(P, base + i, k);
+    const long long src = base + pos;
 #pragma unroll
     for (int c = 0; c < NCARRY; ++c) P.out[NCK + c][base + i] = P.in[NCK + c][src];
   }
@@ -60,8 +222,8 @@ __global__ void __launch_bounds__(kTileThreads)
 
 template <int NCK, int NCARRY>
 cudaError_t launch_tilesort(const Planes& P, long long n, int tile, cudaStream_t stream) {
-  const int threads = std::min(tile / 2, kTileThreads);
-  const int smem = (NCK + 1) * tile * static_cast<int>(sizeof(int));
+  const int threads = std::max(tile / kTilePer, kTileMinThreads);
+  const int smem = tile * TileSlots<NCK>::kBytes + threads / 32 * kBins * static_cast<int>(sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(tilesort_kernel<NCK, NCARRY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -75,12 +237,14 @@ cudaError_t launch_tilesort(const Planes& P, long long n, int tile, cudaStream_t
 }  // namespace vkrs
 
 // Sorts every `tile`-element tile of the planes in[0..nck+ncarry) into
-// out[...] on `device`. tile: a power of two >= 2 whose planes fit shared
-// memory; n >= 1. Returns the cudaError_t of the launch.
+// out[...] on `device`. tile: a power of two >= 2 of at most 16384 whose
+// slots fit shared memory; n >= 1. Returns the
+// cudaError_t of the launch.
 extern "C" int vkrs_tilesort(int device, void* const* in, void* const* out, int nck,
                              int ncarry, long long n, int tile, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile > vkrs::kTileMaxThreads * vkrs::kTilePer) return static_cast<int>(cudaErrorInvalidValue);
   const vkrs::Planes P = vkrs::make_planes(in, out, nck + ncarry);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   VKRS_DISPATCH_PLANES(nck, ncarry, vkrs::launch_tilesort, P, n, tile, s)

@@ -28,8 +28,8 @@ class SortConfig:
         kernel sorts tiles of ``tile`` elements (a power of two); the
         samplesort engine takes it as its tile and bucket target, as in the
         JAX package. ``None`` (default): merge takes the largest tile whose
-        key and position planes fit shared memory twice over on one SM, so
-        two tile-sort blocks share each SM (``ops/merge.default_tile``);
+        keys, positions and digit counters fit one tile-sort block's shared
+        memory (``ops/merge.default_tile``);
         samplesort takes the JAX package's defaults, 2^19 keys-only and
         2^21 key-value, which were measured on a TPU v5e, not on the H100.
     """

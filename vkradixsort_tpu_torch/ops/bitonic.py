@@ -51,7 +51,6 @@ from typing import NamedTuple
 
 import torch
 
-from vkradixsort_tpu_torch.engine.context import GPUContext
 from vkradixsort_tpu_torch.ops import kernels, merge
 from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view
 
@@ -287,14 +286,13 @@ def block_tile(nk: int, device: torch.device) -> int:
     the H100 (PERF.md): with one key plane the largest tile whose key and
     position planes fit one block's shared memory (16384 on an H100, one
     block per SM), which takes one global distance off every level; with two
-    key planes ``ops/merge.default_tile`` (8192): a two-plane tile of 16384
-    fills 192 KB, and at the two-plane contract shape (838,860 elements,
-    2^20 padded) it makes 64 blocks for the H100's 132 SMs."""
+    key planes the largest tile whose key and position planes fit one SM's
+    shared memory twice over (8192): a two-plane tile of 16384 fills 192 KB,
+    and at the two-plane contract shape (838,860 elements, 2^20 padded) it
+    makes 64 blocks for the H100's 132 SMs."""
+    optin, per_sm = merge.smem_limits(device)
     if nk == 2:
-        return merge.default_tile(nk, device)
-    optin = merge.H100_SMEM_PER_BLOCK_OPTIN
-    if device.type == "cuda":
-        optin = GPUContext(device).info.smem_per_block_optin
+        optin = per_sm // 2 - merge.SMEM_RESERVED_PER_BLOCK
     return min(MAX_TILE, 1 << ((optin // (4 * (nk + 1))).bit_length() - 1))
 
 

@@ -94,7 +94,7 @@ def load() -> ctypes.CDLL:
     # the arguments between the device (first) and the stream (last)
     signatures = {
         "tilesort": planes + [i32],
-        "mergepath": planes + [i64],
+        "mergepath": planes + [i64, i32],
         "histogram": [ptr, i64, i32, i32, i32, ptr],
         "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
         "fused": [ptr, ptr, ptr, ptr, i32, i32, i32],

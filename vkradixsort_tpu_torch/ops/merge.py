@@ -27,6 +27,8 @@ has no counterpart here; see the notes at the top of each kernel source.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vkradixsort_tpu_torch.engine.context import GPUContext
@@ -39,21 +41,61 @@ from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view, cdiv
 H100_SMEM_PER_BLOCK_OPTIN = 232448
 H100_SMEM_PER_SM = 233472
 SMEM_RESERVED_PER_BLOCK = 1024
-TILESORT_BLOCKS_PER_SM = 2  # two 1024-thread tile-sort blocks fill an SM's 2048 threads
 MAX_KERNEL_CARRY = 2  # carry planes the kernels are instantiated for
+
+# The tile-sort kernel (csrc/tilesort.cu): TILESORT_PER_THREAD elements a
+# thread, at least 256 threads (one per digit in its scan), at most 1024.
+TILESORT_PER_THREAD = 16
+TILESORT_MIN_THREADS = 256
+TILESORT_MAX_TILE = TILESORT_PER_THREAD * 1024
+
+# The merge-path kernel (csrc/mergepath.cu): output tiles of MERGE_TILE
+# elements, two staged tiles in shared memory. In the H100 sweep (PERF.md)
+# 8192 was within 0.5% of 4096; 4096 fits two blocks an SM at every plane
+# count.
+MERGE_TILE = 4096
+MERGE_STAGES = 2
+MERGE_SLACK = 16  # ints a staged plane holds past its tile
+MERGE_HEADER = 256  # bytes of barriers and tile records
+
+
+def tilesort_smem(nck: int, tile: int) -> int:
+    """Bytes of shared memory one tile-sort block takes: a slot per element
+    (key and position, 8 bytes for one key plane, 10 for two) and a row of
+    256 digit counters (1 KB) per warp."""
+    threads = max(tile // TILESORT_PER_THREAD, TILESORT_MIN_THREADS)
+    return (8 if nck == 1 else 10) * tile + threads // 32 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limits(device: torch.device) -> tuple:
+    """(bytes one block may opt into, bytes one SM holds) on ``device``,
+    asked once per device: the query costs the host more than a launch."""
+    if device.type == "cuda":
+        info = GPUContext(device).info
+        return info.smem_per_block_optin, info.smem_per_sm
+    return H100_SMEM_PER_BLOCK_OPTIN, H100_SMEM_PER_SM
 
 
 def default_tile(nck: int, device: torch.device) -> int:
-    """Largest power-of-two tile whose ``nck`` key planes and position plane
-    (4 bytes each) fit shared memory ``TILESORT_BLOCKS_PER_SM`` times over on
-    one SM of ``device``, so that many tile-sort blocks share each SM (8192
-    elements on an H100 for one or two key planes)."""
-    per_sm, optin = H100_SMEM_PER_SM, H100_SMEM_PER_BLOCK_OPTIN
-    if device.type == "cuda":
-        info = GPUContext(device).info
-        per_sm, optin = info.smem_per_sm, info.smem_per_block_optin
-    budget = min(optin, per_sm // TILESORT_BLOCKS_PER_SM - SMEM_RESERVED_PER_BLOCK)
-    return 1 << ((budget // (4 * (nck + 1))).bit_length() - 1)
+    """The tile sort's default tile: the largest power of two whose slots
+    and counters (:func:`tilesort_smem`) fit the shared memory one block
+    may opt into, within the kernel's 1024 threads: 16384 on an H100 (160 KB
+    for one key plane, 192 KB for two; one 1024-thread block an SM). In the
+    H100 sweep (PERF.md) 8192 sorted its tiles faster, two blocks an SM,
+    but 16384 made the whole sort faster: it takes one merge level off the
+    ladder. The stable result does not depend on the tile."""
+    optin, _ = smem_limits(device)
+    tile = TILESORT_MAX_TILE  # 1024 threads
+    while tilesort_smem(nck, tile) > optin:
+        tile //= 2
+    return tile
+
+
+def mergepath_smem(nplanes: int, tile: int) -> int:
+    """Bytes of shared memory one merge-path block takes: barriers and tile
+    records, then per stage every plane's windows and the tile's sources."""
+    return MERGE_HEADER + MERGE_STAGES * (nplanes * (tile + MERGE_SLACK) + tile) * 4
 
 
 def _check_planes(planes: list, nck: int) -> None:
@@ -123,8 +165,8 @@ def tilesort(planes: list, nck: int, tile: int) -> list:
     if planes[0].device.type == "cpu":
         return tilesort_plain(planes, nck, tile)
     _check_kernel_planes(planes, nck)
-    smem = 4 * (nck + 1) * tile
-    limit = GPUContext(planes[0].device).info.smem_per_block_optin
+    smem = tilesort_smem(nck, tile)
+    limit = smem_limits(planes[0].device)[0]
     if smem > limit:
         raise ValueError(f"tile {tile} needs {smem} B of shared memory, the card has {limit}")
     outs = [torch.empty_like(p) for p in planes]
@@ -185,18 +227,61 @@ def level_splits_plain(planes: list, nck: int, run: int, tile: int) -> torch.Ten
     return torch.searchsorted(dest_a[pair], diag[:, None]).view(-1)
 
 
-def mergepath_level(planes: list, nck: int, run: int) -> list:
+def coranks_plain(planes: list, nck: int, run: int, tile: int) -> torch.Tensor:
+    """The merge-path kernel's co-rank search in plain torch: the co-rank of
+    every ``tile``-element output tile's start (as :func:`level_splits_plain`
+    gives it), found as the kernel's producer warp finds it. The interval
+    starts as [max(0, d - len(B)), min(d, len(A))] for diagonal d, and the
+    predicate A[x] <= B[d-1-x] holds on a prefix of it; each round probes 32
+    evenly spaced points x = lo + lane * ceil((hi - lo) / 32) below hi, and
+    with k of them holding, the crossing lies in (the k-th probe, the
+    (k+1)-th probe or hi]. (The kernel narrows a tile's end to within
+    ``tile`` of its start first; the co-rank is the same.)"""
+    key = _lex_key(planes, nck)
+    n = key.numel()
+    dev = key.device
+    starts = torch.arange(0, n, tile, device=dev)
+    a0 = starts // (2 * run) * (2 * run)
+    b0 = a0 + run
+    d = starts - a0
+    lo = (d - (n - b0).clamp(0, run)).clamp(min=0)
+    hi = torch.minimum(d, (n - a0).clamp(max=run))
+    lane = torch.arange(32, device=dev)
+    while bool((lo < hi).any()):
+        step = (hi - lo + 31) // 32
+        x = lo[:, None] + lane * step[:, None]
+        probe = x < hi[:, None]
+        ai = (a0[:, None] + x).clamp(max=n - 1)
+        bi = (b0[:, None] + d[:, None] - 1 - x).clamp(0, n - 1)
+        k = (probe & (key[ai] <= key[bi])).sum(1)
+        hit = k > 0
+        hi = torch.where(hit, torch.minimum(hi, lo + k * step), lo)
+        lo = torch.where(hit, lo + (k - 1) * step + 1, lo)
+    return lo
+
+
+def mergepath_level(planes: list, nck: int, run: int, *, out_tile: int | None = None) -> list:
     """Merge each pair of sorted runs of ``run`` elements (a power of two)
-    into one sorted run of ``2 * run``, stably. Returns new planes."""
+    into one sorted run of ``2 * run``, stably. Returns new planes.
+    ``out_tile``: the kernel's output tile, a power of two >= 4 (default
+    ``MERGE_TILE``); the result does not depend on it."""
     _check_planes(planes, nck)
     _check_pow2("run", run)
     if planes[0].device.type == "cpu":
         return mergepath_level_plain(planes, nck, run)
     _check_kernel_planes(planes, nck)
+    if out_tile is None:
+        out_tile = MERGE_TILE
+    if out_tile < 4 or out_tile & (out_tile - 1):
+        raise ValueError(f"out_tile must be a power of two >= 4, got {out_tile}")
+    smem = mergepath_smem(len(planes), min(out_tile, 2 * run))
+    limit = smem_limits(planes[0].device)[0]
+    if smem > limit:
+        raise ValueError(f"out_tile {out_tile} needs {smem} B of shared memory, the card has {limit}")
     outs = [torch.empty_like(p) for p in planes]
     n = planes[0].numel()
     if n:
-        kernels.launch("mergepath", planes, outs, nck, n, run)
+        kernels.launch("mergepath", planes, outs, nck, n, run, out_tile)
         mergepath_level.launches += 1
     return outs
 
