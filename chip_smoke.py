@@ -4,26 +4,32 @@
 
 Drives the port's main paths through the public entry points, in phases,
 one line each: the stable u32 key-value sort
-``vkradixsort_tpu_torch.sort_pairs(keys, arange)`` on its default route (the
-merge engine), the same call on ``backend="radix_tiled"``, the one-launch
-``backend="fused"`` sort of a small array, and ``backend="bitonic"`` and
-``backend="samplesort"``.
+``vkradixsort_tpu_torch.sort_pairs(keys, arange)`` on ``backend="merge"``
+and on ``backend="radix_tiled"`` (one of them the default route at 1e8,
+``engine/config.ROUTE_TABLE``), the one-launch ``backend="fused"`` sort of
+a small array, and ``backend="bitonic"`` and ``backend="samplesort"``.
 
   1. probe the card (``nvidia-smi`` name and power limit);
   2. build the kernels from the sources in this checkout;
   3. hold each kernel bitwise against its plain PyTorch version on the card:
      the tile sort on tiles with heavy ties and a ragged last tile, the
      merge-path kernel on every level of a 1e6-element sort, the histogram
-     and destination kernels and the fused sort on ragged sizes, ties, keys
-     equal to the dtype's maximum and both key widths;
+     kernel, the rank-and-scatter kernel in both its modes (destinations
+     only; keys and payloads of 0, 1, 2, 4 and 8 bytes moved) and the fused
+     sort on ragged sizes, ties, keys equal to the dtype's maximum, tiles
+     taken in one round and in two, and both key widths;
   4. the merge path: sort 1e6 pairs exactly against numpy's stable argsort,
      then 1e8 pairs with an exact check on the device, counting each
      kernel's launches;
   5. the radix_tiled path: the same at 1e6 and 1e8 (4 histogram and 4
-     destination launches), with each pass's histogram and destination
-     kernels held bitwise against their plain versions on that sort's own
-     intermediate keys, and timed beside them, with the pass's index
-     widening and scatter, and the peak device memory of the sort;
+     rank-and-scatter launches, no destination-only launch), a profiler
+     trace of the 1e8 sort (its kernels by name: no torch indexing or
+     scatter, no dtype conversion), each pass's histogram kernel and both
+     modes of the rank-and-scatter kernel held bitwise against their plain
+     versions on that sort's own intermediate keys and timed beside them
+     (histogram, scan, rank-and-scatter, per pass), the peak device memory
+     of the sort, and the chunk swept (2048 to 16384: the kernels by pass
+     and the whole sort in turns, results bitwise equal);
   6. the fused path at N = 32768: u32 pairs, then u64 keys with a u64
      payload, one launch each, bitwise against numpy, and timed steadied
      (batches of 100 back-to-back calls) beside ``torch.sort`` plus the
@@ -34,9 +40,12 @@ merge engine), the same call on ``backend="radix_tiled"``, the one-launch
      same tiles and run pairs, each merge level's ms and TB/s, and time the
      whole sort through the merge, radix_tiled and ``torch.sort`` routes, in
      turns; then the tile sweep at 1e8 (tile-sort tile 8192 against 16384,
-     the kernel alone and the whole ``sort_pairs`` in turns; the merge
-     kernel's output tile 4096 against 8192 over every level; results
-     bitwise equal across tiles); the co-rank mirror ``coranks_plain``
+     the kernel alone and the whole ``sort_pairs`` in turns; results
+     bitwise equal across tiles); the merge kernel's output tile (2048, 4096
+     and 8192, where it fits) summed over every level of a 1e8 sort at 1,
+     2, 3 and 4 planes (u32 keys; u32 kv; u32 kv with two payloads and u64
+     keys; u64 keys with a u64 payload), results bitwise equal across
+     tiles; the co-rank mirror ``coranks_plain``
      against the merge kernel's own splits at one 1e8 level; and at
      n = 2^31 + 4097 (one key plane) the tile sort's last tiles and one
      merge level's last run pairs bitwise against their plain versions run
@@ -58,7 +67,12 @@ merge engine), the same call on ``backend="radix_tiled"``, the one-launch
      lengths, and timed there; a forced-overflow sort (the flat fallback);
      ``backend="samplesort"`` kv and keys at 1e8 (exact on the device) and
      u64 keys at 1e6 (bitwise against numpy), one placement launch each, so
-     no fallback; the whole sorts beside ``torch.sort`` in turns.
+     no fallback; the whole sorts beside ``torch.sort`` in turns;
+ 10. the crossovers behind ``ROUTE_TABLE``: stable u32 kv with one 4-byte
+     payload and u32 keys alone through ``torch.sort`` (tiled), merge and
+     radix_tiled, and kv with two 4-byte payloads through tiled and merge,
+     at 2^16 to 2^26 and 1e8, in turns in this one process, each beside the
+     engine the table picks.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
@@ -67,8 +81,9 @@ least time the card could take (``bound_ms``: the larger of the bytes moved
 over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
 summed over the launches of one main-path run; the bitonic and fused
-entries also quote their PR 3 times from PERF.md, as text. The last is the
-run's JSON result. Without a CUDA device, or without the package beside
+entries also quote their times before their redesign and the radix_dest
+entry the parts it replaced (destinations, widening, torch scatter), from
+PERF.md, as text. The last is the run's JSON result. Without a CUDA device, or without the package beside
 it, it exits non-zero and prints no result.
 """
 
@@ -84,6 +99,7 @@ import numpy as np
 import torch
 
 import vkradixsort_tpu_torch as vt
+from vkradixsort_tpu_torch.engine.config import route_for
 from vkradixsort_tpu_torch.ops import (
     bitonic,
     fused,
@@ -221,26 +237,43 @@ def radix_keys(rng, n: int, dtype, kind: str) -> np.ndarray:
     return keys
 
 
+def radix_payload(rng, n: int, dtype):
+    """n random values of a 1-, 2-, 4- or 8-byte dtype (any bit pattern)."""
+    return rng.integers(0, 2**64, size=n, dtype=np.uint64).view(np.uint8)[
+        : n * np.dtype(dtype).itemsize].view(dtype).copy()
+
+
 def compare_radix_kernels(dev, rng) -> dict:
-    """The histogram, destination and fused kernels against their plain
-    versions on ragged sizes, ties, dtype-max keys and both key widths."""
+    """The histogram kernel, both modes of the rank-and-scatter kernel and
+    the fused kernel against their plain versions on ragged sizes, ties,
+    dtype-max keys, both key widths, payloads of 0, 1, 2, 4 and 8 bytes and
+    tiles taken in one round and in two."""
     err = {"histogram": 0, "radix_dest": 0, "fused": 0}
-    for n, tile, dtype, kind in [(5 * 2048 + 17, 2048, np.uint32, "ties"),
-                                 (300_001, 2048, np.uint64, "max"),
-                                 (3001, 100, np.uint32, "max"),
-                                 (1, 2048, np.uint64, "uniform")]:
+    for n, tile, dtype, kind, vdt in [(5 * 2048 + 17, 2048, np.uint32, "ties", np.uint16),
+                                      (300_001, 2048, np.uint64, "max", np.uint64),
+                                      (3001, 100, np.uint32, "max", None),
+                                      (1, 2048, np.uint64, "uniform", np.uint8),
+                                      (70_001, 8192, np.uint32, "uniform", np.float32),
+                                      (70_001, 8192, np.uint64, "ties", np.uint64),
+                                      (40_000, 16384, np.uint32, "max", np.uint32)]:
         keys = torch.from_numpy(radix_keys(rng, n, dtype, kind)).to(dev)
+        vals = None if vdt is None else torch.from_numpy(radix_payload(rng, n, vdt)).to(dev)
         for shift in range(0, 8 * keys.element_size(), 8):
             hist = histogram.tile_histograms(keys, shift, tile)
             e_hist = max_abs_err([hist], [histogram.tile_histograms_plain(keys, shift, tile)])
             base = reference.exclusive_bin_offsets(hist)
             e_dest = max_abs_err([radix_tiled.tile_destinations(keys, shift, tile, base)],
                                  [radix_tiled.tile_destinations_plain(keys, shift, tile, base)])
+            got = radix_tiled.tile_scatter(keys, vals, shift, tile, base)
+            want = radix_tiled.tile_scatter_plain(keys, vals, shift, tile, base)
+            e_move = max_abs_err([x for x in got if x is not None],
+                                 [x for x in want if x is not None])
             err["histogram"] = max(err["histogram"], e_hist)
-            err["radix_dest"] = max(err["radix_dest"], e_dest)
-        phase("compare", f"histogram + radix_dest n={n} tile={tile} {np.dtype(dtype).name} "
-                         f"{kind}, every pass: max_abs_err {err['histogram']} / "
-                         f"{err['radix_dest']}")
+            err["radix_dest"] = max(err["radix_dest"], e_dest, e_move)
+        phase("compare", f"histogram + radix_dest (both modes) n={n} tile={tile} "
+                         f"{np.dtype(dtype).name} {kind} payload "
+                         f"{None if vdt is None else np.dtype(vdt).name}, every pass: "
+                         f"max_abs_err {err['histogram']} / {err['radix_dest']}")
     for n, kdt, vdt, kind in [(N_FUSED, np.uint32, np.uint32, "ties"),
                               (N_FUSED, np.uint64, np.uint64, "uniform"),
                               (N_FUSED - 5, np.uint64, np.uint64, "max"),
@@ -259,14 +292,101 @@ def compare_radix_kernels(dev, rng) -> dict:
     return err
 
 
+RADIX_CHUNKS = (2048, 4096, 8192, 16384)
+
+
+def scan_int64(hist: torch.Tensor) -> torch.Tensor:
+    """The former form of ``reference.exclusive_bin_offsets``, for its time
+    beside the int32 scan: widened to int64, scanned, narrowed back."""
+    flat = hist.t().reshape(-1).to(torch.int64)
+    scanned = torch.cumsum(flat, 0) - flat
+    return scanned.view(hist.shape[1], hist.shape[0]).t().to(torch.int32).contiguous()
+
+
+def profile_radix_sort(keys, values, backend, smi: str) -> None:
+    """One 1e8 radix_tiled sort under ``torch.profiler``: the device kernels
+    by name and count, and the host's aten calls. The pass moves keys and
+    values in its own kernel: no torch indexing or scatter kernel may run,
+    and no ``aten::_to_copy`` (a dtype conversion, such as the former int32 ->
+    int64 widening of the destinations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vt.sort_pairs(keys, values, backend=backend)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vt.sort_pairs(keys, values, backend=backend)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels_seen = {e.key: (e.count, e.device_time_total / 1e3) for e in events
+                    if e.device_type == DeviceType.CUDA}
+    host = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
+
+    def count(part):
+        return sum(c for k, (c, _) in kernels_seen.items() if part in k)
+
+    torch_moves = [k for k in kernels_seen
+                   if "vkrs" not in k and ("index" in k.lower() or "scatter" in k.lower())]
+    phase("profile", f"sort_pairs n={N_MAIN} radix_tiled, device kernels (count, ms): " + "; ".join(
+        f"{k[:90]} ({c}, {t:.3f})" for k, (c, t) in sorted(kernels_seen.items(),
+                                                             key=lambda kv: -kv[1][1]))
+        + f"; aten::_to_copy {host.get('aten::_to_copy', 0)}, aten::index_put_ "
+        f"{host.get('aten::index_put_', 0)} [{smi}]")
+    if count("histogram_kernel") != 4 or count("radix_pass_kernel") != 4 or torch_moves or \
+            host.get("aten::_to_copy", 0) or host.get("aten::index_put_", 0):
+        raise AssertionError(f"the radix_tiled profile is not 4 histograms and 4 rank-and-scatter "
+                             f"launches alone: {kernels_seen}, aten {host}")
+
+
+def radix_chunk_sweep(dev, keys, values, smi: str) -> dict:
+    """The radix_tiled chunk swept over RADIX_CHUNKS at 1e8 stable u32 kv:
+    the whole ``sort_pairs`` in turns, its results bitwise equal across
+    chunks, and at each chunk the histogram, the scan and the rank-and-
+    scatter kernel summed over the sort's 4 passes. Returns {"sort_pairs":
+    {chunk: [ms...]}, "parts": {chunk: {part: ms}}}."""
+    first = None
+    parts = {}
+    for chunk in RADIX_CHUNKS:
+        out = vt.sort_pairs(keys, values, backend="radix_tiled", config=vt.SortConfig(chunk=chunk))
+        if first is None:
+            first = out
+        elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                     for a, b in zip(first, out)):
+            raise AssertionError(f"the radix_tiled result depends on the chunk ({chunk})")
+        del out
+        ms = {"histogram": 0.0, "scan": 0.0, "scatter": 0.0}
+        cur_k, cur_v = keys, values
+        for shift in range(0, 32, 8):
+            hist = histogram.tile_histograms(cur_k, shift, chunk)
+            base = reference.exclusive_bin_offsets(hist)
+            ms["histogram"] += time_ms(lambda: histogram.tile_histograms(cur_k, shift, chunk))
+            ms["scan"] += time_ms(lambda: reference.exclusive_bin_offsets(hist))
+            ms["scatter"] += time_ms(
+                lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, chunk, base))
+            cur_k, cur_v = radix_tiled.tile_scatter(cur_k, cur_v, shift, chunk, base)
+        parts[chunk] = ms
+    del first, cur_k, cur_v
+    e2e = in_turns(lambda c: lambda k: vt.sort_pairs(k, values, backend="radix_tiled",
+                                                     config=vt.SortConfig(chunk=c)),
+                   keys, {c: c for c in RADIX_CHUNKS})
+    phase("time", f"radix_tiled chunk sweep n={N_MAIN} stable u32 kv, 4 passes summed: " + "; ".join(
+        f"chunk {c}: histogram {m['histogram']:.4f}, scan {m['scan']:.4f}, rank-and-scatter "
+        f"{m['scatter']:.4f} ms, whole sort_pairs {' / '.join(f'{x:.3f}' for x in e2e[c])} ms"
+        for c, m in parts.items()) + f"; results bitwise equal; the default takes "
+        f"{vt.SortConfig().chunk} [{smi}]")
+    return {"sort_pairs": e2e, "parts": parts}
+
+
 def radix_main_path(dev, rng, smi: str) -> tuple:
     """The radix_tiled path: 1e6 pairs against numpy, then 1e8 pairs through
-    the public entry point with launch counts and peak memory, then each of
-    the 1e8 sort's passes by hand: histogram and destination kernels
-    bitwise against their plain versions on the pass's own keys, and timed
-    beside them, with ``torch.bincount`` over the precomputed composite
-    index as the histogram's library yardstick and the pass's index
-    widening and scatter. Returns (launches, stats)."""
+    the public entry point (the default route where it leads there) with
+    launch counts, a profiler trace and peak memory, then each of the 1e8
+    sort's passes by hand: the histogram kernel and both modes of the
+    rank-and-scatter kernel bitwise against their plain versions on the
+    pass's own keys and timed beside them, with the scan, ``torch.bincount``
+    over the precomputed composite index as the histogram's library
+    yardstick, and the former int64 scan; then the chunk sweep. Returns
+    (launches, stats)."""
     small = rng.integers(0, 1 << 32, size=N_SMALL, dtype=np.uint32)
     sk, sv = vt.sort_pairs(torch.from_numpy(small).to(dev),
                            torch.arange(N_SMALL, dtype=torch.int32, device=dev).view(torch.uint32),
@@ -277,28 +397,33 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
 
     keys = random_u32(dev, N_MAIN, SEED)
     values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+    backend = None if route_for("kv", N_MAIN) == "radix_tiled" else "radix_tiled"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
     histogram.tile_histograms.launches = 0
-    radix_tiled.tile_destinations.launches = 0
-    out_k, out_v = vt.sort_pairs(keys, values, backend="radix_tiled")
+    radix_tiled.tile_scatter.launches = radix_tiled.tile_destinations.launches = 0
+    out_k, out_v = vt.sort_pairs(keys, values, backend=backend)
     torch.cuda.synchronize()
     launches = {"histogram": histogram.tile_histograms.launches,
+                "radix_scatter": radix_tiled.tile_scatter.launches,
                 "radix_dest": radix_tiled.tile_destinations.launches}
     peak = torch.cuda.max_memory_allocated(dev)
     check_stable_kv(keys, out_k, out_v)
-    phase("slice", f"sort_pairs n={N_MAIN} backend=radix_tiled: exact stable sort on the device; "
-                   f"launches {launches}, expected 4 and 4; peak device memory {peak / 1e9:.3f} GB "
+    phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
+                   f"{route_for('kv', N_MAIN)}): exact stable sort on the device; launches "
+                   f"{launches}, expected 4, 4 and 0; peak device memory {peak / 1e9:.3f} GB "
                    f"({before / 1e9:.3f} GB of it allocated before the call)")
-    if launches != {"histogram": 4, "radix_dest": 4}:
+    if launches != {"histogram": 4, "radix_scatter": 4, "radix_dest": 0}:
         raise AssertionError(f"the radix_tiled path did not run through the kernels: {launches}")
     del out_k, out_v
+    profile_radix_sort(keys, values, backend, smi)
 
     tile = vt.SortConfig().chunk
     nt = cdiv(N_MAIN, tile)
-    st = {k: 0.0 for k in ("histogram", "histogram_plain", "histogram_library", "radix_dest",
-                           "radix_dest_plain", "widen", "scatter")}
+    st = {k: 0.0 for k in ("histogram", "histogram_plain", "histogram_library", "scan",
+                           "scan_int64", "radix_scatter", "radix_scatter_plain", "radix_dest",
+                           "radix_dest_plain")}
     err = {"histogram": 0, "radix_dest": 0}
     cur_k, cur_v = keys, values
     for shift in range(0, 32, 8):
@@ -306,37 +431,55 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
         err["histogram"] = max(err["histogram"], max_abs_err(
             [hist], [histogram.tile_histograms_plain(cur_k, shift, tile)]))
         base = reference.exclusive_bin_offsets(hist)
+        if not torch.equal(base, scan_int64(hist)):
+            raise AssertionError("the int32 scan disagrees with the int64 scan")
         dest = radix_tiled.tile_destinations(cur_k, shift, tile, base)
-        err["radix_dest"] = max(err["radix_dest"], max_abs_err(
-            [dest], [radix_tiled.tile_destinations_plain(cur_k, shift, tile, base)]))
-        st["histogram"] += time_ms(lambda: histogram.tile_histograms(cur_k, shift, tile))
+        e_dest = max_abs_err([dest],
+                             [radix_tiled.tile_destinations_plain(cur_k, shift, tile, base)])
+        nxt = radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base)
+        e_move = max_abs_err(list(nxt), list(radix_tiled.tile_scatter_plain(cur_k, cur_v, shift,
+                                                                            tile, base)))
+        err["radix_dest"] = max(err["radix_dest"], e_dest, e_move)
+        pass_ms = {
+            "histogram": time_ms(lambda: histogram.tile_histograms(cur_k, shift, tile)),
+            "scan": time_ms(lambda: reference.exclusive_bin_offsets(hist)),
+            "radix_scatter": time_ms(
+                lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base))}
+        for k, v in pass_ms.items():
+            st[k] += v
+        phase("time", f"n={N_MAIN} chunk {tile} radix pass at shift {shift}: histogram "
+                      f"{pass_ms['histogram']:.4f} ms, scan {pass_ms['scan']:.4f} ms, "
+                      f"rank-and-scatter {pass_ms['radix_scatter']:.4f} ms [{smi}]")
+        st["scan_int64"] += time_ms(lambda: scan_int64(hist))
+        st["radix_dest"] += time_ms(lambda: radix_tiled.tile_destinations(cur_k, shift, tile, base))
         st["histogram_plain"] += time_ms(
             lambda: histogram.tile_histograms_plain(cur_k, shift, tile), reps=3)
+        st["radix_dest_plain"] += time_ms(
+            lambda: radix_tiled.tile_destinations_plain(cur_k, shift, tile, base), reps=3)
+        st["radix_scatter_plain"] += time_ms(
+            lambda: radix_tiled.tile_scatter_plain(cur_k, cur_v, shift, tile, base), reps=3)
         composite = (torch.arange(N_MAIN, device=dev) // tile) * NUM_BINS + extract_digit(cur_k,
                                                                                          shift)
         st["histogram_library"] += time_ms(
             lambda: torch.bincount(composite, minlength=nt * NUM_BINS))
-        del composite
-        st["radix_dest"] += time_ms(lambda: radix_tiled.tile_destinations(cur_k, shift, tile, base))
-        st["radix_dest_plain"] += time_ms(
-            lambda: radix_tiled.tile_destinations_plain(cur_k, shift, tile, base), reps=3)
-        st["widen"] += time_ms(lambda: dest.to(torch.int64))
-        d64 = dest.to(torch.int64)
-        st["scatter"] += time_ms(lambda: (reference.scatter(cur_k, d64),
-                                          reference.scatter(cur_v, d64)))
-        cur_k, cur_v = reference.scatter(cur_k, d64), reference.scatter(cur_v, d64)
-        del d64, dest, base, hist
+        del composite, dest, base, hist
+        cur_k, cur_v = nxt
     check_stable_kv(keys, cur_k, cur_v)
-    phase("compare", f"n={N_MAIN} tile={tile}, the 4 passes of the radix_tiled sort on their own "
-                     f"keys: histogram max_abs_err {err['histogram']}, radix_dest max_abs_err "
-                     f"{err['radix_dest']}; the passes by hand give the exact stable sort")
+    phase("compare", f"n={N_MAIN} chunk={tile}, the 4 passes of the radix_tiled sort on their own "
+                     f"keys: histogram max_abs_err {err['histogram']}, rank-and-scatter (both "
+                     f"modes) max_abs_err {err['radix_dest']}; the passes by hand give the exact "
+                     "stable sort")
     if any(err.values()):
         raise AssertionError(f"radix kernels disagree with their plain versions at 1e8: {err}")
-    phase("time", f"n={N_MAIN} radix_tiled, 4 passes summed: histogram {st['histogram']:.3f} ms "
-                  f"(plain {st['histogram_plain']:.3f}, bincount {st['histogram_library']:.3f}); "
-                  f"radix_dest {st['radix_dest']:.3f} ms (plain {st['radix_dest_plain']:.3f}); "
-                  f"int32->int64 widening of dest {st['widen']:.3f} ms; scatter of keys and "
-                  f"values {st['scatter']:.3f} ms [{smi}]")
+    phase("time", f"n={N_MAIN} radix_tiled chunk {tile}, 4 passes summed: histogram "
+                  f"{st['histogram']:.3f} ms (plain {st['histogram_plain']:.3f}, bincount "
+                  f"{st['histogram_library']:.3f}); scan {st['scan']:.3f} ms (int64 form "
+                  f"{st['scan_int64']:.3f}); rank-and-scatter {st['radix_scatter']:.3f} ms (plain "
+                  f"{st['radix_scatter_plain']:.3f}); destination mode {st['radix_dest']:.3f} ms "
+                  f"(plain {st['radix_dest_plain']:.3f}); replaced: destinations 3.397 + widening "
+                  f"1.740 + torch scatter 16.161 ms [{smi}]")
+    del cur_k, cur_v
+    st["sweep"] = radix_chunk_sweep(dev, keys, values, smi)
     st["err"] = err
     st["peak_gb"] = peak / 1e9
     return launches, st
@@ -775,48 +918,101 @@ def time_main_path(dev, n: int, smi: str):
 def merge_tile_sweep(dev, smi: str) -> dict:
     """The tile sort's tile swept, 8192 against 16384, at 1e8 random u32
     pairs: the kernel alone and the whole ``sort_pairs`` on the merge route
-    in turns, with the sorted results bitwise equal across tiles; and the
-    merge kernel's output tile, 4096 against 8192, summed over the levels of
-    the default ladder, each level's results bitwise equal. Returns
-    {"tilesort": {tile: ms}, "sort_pairs": {tile: [ms...]}, "mergepath":
-    {out_tile: ms}}."""
+    in turns, with the sorted results bitwise equal across tiles. Returns
+    {"tilesort": {tile: ms}, "sort_pairs": {tile: [ms...]}}."""
     keys = random_u32(dev, N_MAIN, SEED + 11)
     values = torch.arange(N_MAIN, dtype=torch.int32, device=dev)
     planes = [keys.view(torch.int32) ^ _MIN32, values]
-    sweep = {"tilesort": {}, "sort_pairs": {}, "mergepath": {}}
+    sweep = {"tilesort": {}, "sort_pairs": {}}
     outs = []
     for tile in (8192, 16384):
         sweep["tilesort"][tile] = time_ms(lambda: merge.tilesort(planes, 1, tile))
-        outs.append(vt.sort_pairs(keys, values.view(torch.uint32),
+        outs.append(vt.sort_pairs(keys, values.view(torch.uint32), backend="merge",
                                   config=vt.SortConfig(tile=tile)))
     if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(outs[0], outs[1])):
         raise AssertionError("the merge route's result depends on the tile-sort tile")
     del outs
-    e2e = in_turns(lambda t: lambda k: vt.sort_pairs(k, values.view(torch.uint32),
+    e2e = in_turns(lambda t: lambda k: vt.sort_pairs(k, values.view(torch.uint32), backend="merge",
                                                      config=vt.SortConfig(tile=t)),
                    keys, {8192: 8192, 16384: 16384})
     sweep["sort_pairs"] = e2e
-    tile = merge.default_tile(1, dev)
-    cur, run = merge.tilesort(planes, 1, tile), tile
-    sweep["mergepath"] = {4096: 0.0, 8192: 0.0}
-    while run < N_MAIN:
-        got = [merge.mergepath_level(cur, 1, run, out_tile=t) for t in (4096, 8192)]
-        if not all(torch.equal(a, b) for a, b in zip(*got)):
-            raise AssertionError(f"the merge level of run {run} depends on its output tile")
-        for t in (4096, 8192):
-            sweep["mergepath"][t] += time_ms(lambda: merge.mergepath_level(cur, 1, run, out_tile=t),
-                                             reps=3)
-        cur, run = got[0], 2 * run
-        del got
     phase("time", f"tile sweep n={N_MAIN} stable u32 kv: tilesort " + ", ".join(
         f"tile {t} {ms:.4f} ms" for t, ms in sweep["tilesort"].items())
         + "; whole sort_pairs on the merge route " + ", ".join(
         f"tile {t} {' / '.join(f'{x:.3f}' for x in v)} ms" for t, v in e2e.items())
-        + f", results bitwise equal; the default takes {tile}; mergepath levels summed, "
-        + ", ".join(f"out_tile {t} {ms:.4f} ms" for t, ms in sweep["mergepath"].items())
-        + f", results bitwise equal [{smi}]")
+        + f", results bitwise equal; the default takes {merge.default_tile(1, dev)} [{smi}]")
     return sweep
+
+
+MERGE_PLANE_CASES = [  # (what, key planes, carry planes)
+    ("u32 keys", 1, 0), ("u32 kv", 1, 1), ("u32 kv with two 4-byte payloads", 1, 2),
+    ("u64 keys", 2, 0), ("u64 keys with a u64 payload", 2, 2),
+]
+
+
+def merge_plane_sweep(dev, smi: str) -> dict:
+    """The merge kernel's output tile by plane count: 2048, 4096 and 8192
+    (where two staged tiles fit one block's shared memory), summed over the
+    merge levels of a 1e8 sort at 1, 2, 3 and 4 planes, each level's result
+    bitwise equal across tiles. Returns {what: {tile: ms}}."""
+    optin = merge.smem_limits(dev)[0]
+    sweep = {}
+    for what, nck, ncarry in MERGE_PLANE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + nck * 4 + ncarry)
+        planes = [torch.randint(-(2**31), 2**31, (N_MAIN,), dtype=torch.int32, device=dev,
+                                generator=gen) for _ in range(nck + ncarry)]
+        tiles = [t for t in (2048, 4096, 8192) if merge.mergepath_smem(nck + ncarry, t) <= optin]
+        run = merge.default_tile(nck, dev)
+        cur = merge.tilesort(planes, nck, run)
+        del planes
+        ms = {t: 0.0 for t in tiles}
+        while run < N_MAIN:
+            got = [merge.mergepath_level(cur, nck, run, out_tile=t) for t in tiles]
+            if not all(torch.equal(a, b) for g in got[1:] for a, b in zip(got[0], g)):
+                raise AssertionError(f"the merge level of run {run} depends on its output tile "
+                                     f"at {what}")
+            for t in tiles:
+                ms[t] += time_ms(lambda: merge.mergepath_level(cur, nck, run, out_tile=t), reps=3)
+            cur, run = got[0], 2 * run
+            del got
+        del cur
+        sweep[what] = ms
+        phase("time", f"mergepath out_tile sweep n={N_MAIN} {what} ({nck + ncarry} planes), "
+                      "levels summed: " + ", ".join(f"{t}: {v:.4f} ms" for t, v in ms.items())
+              + f"; results bitwise equal; the engine takes "
+                f"{merge.MERGE_TILES[nck + ncarry]} [{smi}]")
+    return sweep
+
+
+CROSS_SIZES = (1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24, 1 << 26, N_MAIN)
+
+
+def crossovers(dev, smi: str) -> dict:
+    """The crossovers behind ROUTE_TABLE, stable and u32, in one process:
+    kv with one 4-byte payload and keys alone through tiled (torch.sort),
+    merge and radix_tiled, kv with two 4-byte payloads through tiled and
+    merge, at every size of CROSS_SIZES, in turns, each call on a fresh
+    remix of the keys. Prints each with the engine the table picks and the
+    fastest. Returns {(op, n): {engine: [ms...]}}."""
+    out = {}
+    three = {"tiled": "tiled", "merge": "merge", "radix_tiled": "radix_tiled"}
+    for n in CROSS_SIZES:
+        keys = random_u32(dev, n, SEED + 40)
+        v1 = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+        v2 = (v1, (torch.arange(n, dtype=torch.int32, device=dev) * 7).view(torch.float32))
+        for op, call, engines in [
+                ("kv", lambda b: lambda k: vt.sort_pairs(k, v1, backend=b), three),
+                ("keys", lambda b: lambda k: vt.sort(k, backend=b), three),
+                ("kv2", lambda b: lambda k: vt.sort_pairs(k, v2, backend=b),
+                 {"tiled": "tiled", "merge": "merge"})]:
+            t = in_turns(call, keys, engines)
+            out[(op, n)] = t
+            best = min(t, key=lambda e: statistics.mean(t[e]))
+            phase("time", f"crossover {op} n={n}: " + ", ".join(
+                f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
+                + f" ms; fastest {best}, the table routes {route_for(op, n)} [{smi}]")
+    return out
 
 
 def check_coranks(dev) -> None:
@@ -833,7 +1029,7 @@ def check_coranks(dev) -> None:
     while r < run:  # the levels below 2^20
         runs, r = merge.mergepath_level(runs, 1, r), 2 * r
     pos = torch.arange(N_MAIN, dtype=torch.int32, device=dev)
-    out_tile = merge.MERGE_TILE
+    out_tile = merge.MERGE_TILES[2]
     _, src = merge.mergepath_level([runs[0], pos], 1, run, out_tile=out_tile)
     idx = torch.arange(N_MAIN, device=dev)
     pair0 = idx // (2 * run) * (2 * run)
@@ -941,12 +1137,14 @@ def main() -> None:
     torch.cuda.synchronize()
     merge.tilesort.launches = 0
     merge.mergepath_level.launches = 0
-    out_k, out_v = vt.sort_pairs(keys, values)
+    backend = None if route_for("kv", N_MAIN) == "merge" else "merge"
+    out_k, out_v = vt.sort_pairs(keys, values, backend=backend)
     torch.cuda.synchronize()
     launches = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
     nlev = math.ceil(math.log2(N_MAIN / main_tile))
     check_stable_kv(keys, out_k, out_v)
-    phase("slice", f"sort_pairs n={N_MAIN} (default route): exact stable sort on the device; "
+    phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
+                   f"{route_for('kv', N_MAIN)}): exact stable sort on the device; "
                    f"launches {launches}, expected tilesort 1 and mergepath {nlev}")
     if launches != {"tilesort": 1, "mergepath": nlev}:
         raise AssertionError(f"the main path did not run through the kernels: {launches}")
@@ -965,6 +1163,7 @@ def main() -> None:
         ms, plain_ms, e, merge_library_ms, nlevels = time_main_path(dev, n, smi)
         err = {k: max(err[k], e.get(k, 0)) for k in err}
     merge_tile_sweep(dev, smi)
+    merge_plane_sweep(dev, smi)
     check_coranks(dev)
     check_past_2_31(dev)
 
@@ -975,9 +1174,13 @@ def main() -> None:
     launches["placement"], sst = samplesort_main_path(dev, rng, smi)
     err["placement"] = sst["err"]
 
+    # --- 10. the crossovers behind the route table
+    crossovers(dev, smi)
+
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
-    dest_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt + 4 * N_MAIN)  # keys and base in, dest out
+    # keys and values read and written, the base table read; 4 passes
+    move_bytes = 4 * (16 * N_MAIN + 4 * NUM_BINS * nt)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "tilesort", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/tilesort.cu",
@@ -997,10 +1200,11 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": rst["histogram_library"]},
         {"name": "radix_dest", "route": "cuda",
          "source": "vkradixsort_tpu_torch/csrc/radix_dest.cu",
-         "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86", "launches": launches["radix_dest"],
-         "max_abs_err": err["radix_dest"], "ms": rst["radix_dest"],
-         "plain_ms": rst["radix_dest_plain"], "bound_ms": bound_ms(dest_bytes),
-         "bound_by": "bytes", "library_ms": None},
+         "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86",
+         "launches": launches["radix_scatter"], "max_abs_err": err["radix_dest"],
+         "ms": rst["radix_scatter"], "plain_ms": rst["radix_scatter_plain"],
+         "bound_ms": bound_ms(move_bytes), "bound_by": "bytes", "library_ms": None,
+         "pr5": "3.397 ms dest + 1.740 widen + 16.161 torch scatter"},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

@@ -161,7 +161,8 @@ def test_kernel_path_never_takes_the_plain_versions(dev, monkeypatch):
     keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
     before = (merge.tilesort.launches, merge.mergepath_level.launches)
-    ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev))
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
+                           backend="merge")
     assert merge.tilesort.launches == before[0] + 1 and merge.mergepath_level.launches > before[1]
     perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
@@ -221,6 +222,26 @@ def test_oversized_tile_raises(dev):
         merge.tilesort(planes, 2, 1 << 16)
 
 
+@pytest.mark.parametrize("tile", [3000, 1 << 21])
+@pytest.mark.parametrize("backend", [None, "merge"])
+def test_any_grain_the_jax_package_takes_sorts(dev, tile, backend):
+    # the merge ladder floors a grain to a power of two, as the JAX package
+    # does, and caps it at the largest tile one block sorts; the low-level
+    # tile sort still refuses such tiles (test_oversized_tile_raises). The
+    # default route (radix_tiled at this size) sorts with such a grain too
+    rng = np.random.default_rng(tile)
+    n = (1 << 24) + 77
+    keys = rng.integers(0, 5000, size=n, dtype=np.uint32)
+    vals = np.arange(n, dtype=np.uint32)
+    before = merge.tilesort.launches
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
+                           config=vt.SortConfig(tile=tile), backend=backend)
+    assert merge.tilesort.launches == before + (backend == "merge")
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
+    np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+
+
 def test_gpu_context(dev):
     info = vt.GPUContext(dev).info
     assert info.sm_count > 0 and info.l2_bytes > 0
@@ -232,7 +253,8 @@ def test_gpu_context(dev):
         assert tile == merge.TILESORT_MAX_TILE or (
             merge.tilesort_smem(nck, 2 * tile) > info.smem_per_block_optin)
         for nplanes in (1, 2, 3, 4):
-            assert merge.mergepath_smem(nplanes, merge.MERGE_TILE) <= info.smem_per_block_optin
+            tile = merge.MERGE_TILES[nplanes]
+            assert merge.mergepath_smem(nplanes, tile) <= info.smem_per_block_optin
 
 
 def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
@@ -251,6 +273,36 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
         assert torch.equal(o, v[perm])
 
 
+@pytest.mark.parametrize("op,n,engine", [
+    ("kv", 1 << 20, "tiled"), ("kv", (1 << 24) + 5, "radix_tiled"),
+    ("keys", (1 << 20) + 3, "tiled"), ("keys", (1 << 23) - 3, "tiled"),
+    ("keys", (1 << 24) + 5, "radix_tiled"), ("kv2", (1 << 24) + 5, "tiled"),
+])
+def test_default_route_follows_the_table(dev, op, n, engine):
+    # each row of ROUTE_TABLE leads to its engine's kernels; a two-payload
+    # call never reaches radix_tiled, which takes one payload
+    from vkradixsort_tpu_torch.engine.config import route_for
+
+    assert route_for(op, n) == engine
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint32)
+    vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32)]
+    vals = vals[:{"keys": 0, "kv": 1, "kv2": 2}[op]]
+    before = (merge.tilesort.launches, radix_tiled.tile_scatter.launches)
+    tk = torch.from_numpy(keys).to(dev)
+    if vals:
+        ok, ov = vt.sort_pairs(tk, [torch.from_numpy(v).to(dev) for v in vals])
+    else:
+        ok, ov = vt.sort(tk), []
+    ran = (merge.tilesort.launches > before[0], radix_tiled.tile_scatter.launches > before[1])
+    assert ran == (engine == "merge", engine == "radix_tiled")
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
+    for o, v in zip(ov, vals):
+        np.testing.assert_array_equal(common.bits_view(o).cpu().numpy(),
+                                      v.view(np.int32)[perm])
+
+
 def _radix_keys(rng, n, dtype, kind):
     """Keys for the radix kernels: "ties" (13 values, every byte alike),
     "max" (a fifth equal to the dtype's maximum), "uniform" or "constant"."""
@@ -266,10 +318,12 @@ def _radix_keys(rng, n, dtype, kind):
     return keys
 
 
-RADIX_SHAPES = [  # (n, tile): ragged, one element, tiles smaller than a strip
+RADIX_SHAPES = [  # (n, tile): ragged, one element, tiles smaller than a strip, tiles
+    # the scatter kernel takes in two rounds (it holds 8192 elements at once)
     (1, 2048), (2048, 2048), (5 * 2048 + 17, 2048), (70_001, 2048), (1000, 100), (3001, 32),
-    (4097, 4096),
+    (4097, 4096), (40_000, 16384), (25_000, 10_000),
 ]
+RADIX_PAYLOADS = [None, np.uint8, np.int16, np.float32, np.uint64]  # 0, 1, 2, 4, 8 bytes
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
@@ -289,6 +343,60 @@ def test_histogram_and_destination_kernels_match_plain(dev, dtype, kind, n, tile
         base = reference.exclusive_bin_offsets(hist)
         _equal([radix_tiled.tile_destinations(keys, shift, tile, base)],
                [radix_tiled.tile_destinations_plain(keys, shift, tile, base)])
+
+
+def _payload(rng, n, dtype):
+    return torch.from_numpy(rng.integers(0, 2**64, size=n, dtype=np.uint64).view(np.uint8)
+                            [: n * np.dtype(dtype).itemsize].view(dtype).copy())
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("kind", ["ties", "max", "uniform", "constant"])
+@pytest.mark.parametrize("n,tile", RADIX_SHAPES)
+@pytest.mark.parametrize("payload", RADIX_PAYLOADS,
+                         ids=lambda d: "keys" if d is None else np.dtype(d).name)
+def test_scatter_kernel_matches_plain(dev, dtype, kind, n, tile, payload):
+    # the rank-and-scatter kernel moves keys and payload where the plain
+    # destinations send them, at every pass, and leaves its inputs as they were
+    rng = np.random.default_rng(n + tile + 1)
+    keys = torch.from_numpy(_radix_keys(rng, n, dtype, kind)).to(dev)
+    vals = None if payload is None else _payload(rng, n, payload).to(dev)
+    keys_in, vals_in = keys.clone(), None if vals is None else vals.clone()
+    for shift in range(0, 8 * keys.element_size(), 8):
+        base = reference.exclusive_bin_offsets(histogram.tile_histograms(keys, shift, tile))
+        before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches)
+        ok, ov = radix_tiled.tile_scatter(keys, vals, shift, tile, base)
+        assert (radix_tiled.tile_scatter.launches,
+                radix_tiled.tile_destinations.launches) == (before[0] + 1, before[1])
+        pk, pv = radix_tiled.tile_scatter_plain(keys, vals, shift, tile, base)
+        _equal([common.bits_view(ok)], [common.bits_view(pk)])
+        if vals is None:
+            assert ov is None and pv is None
+        else:
+            _equal([common.bits_view(ov)], [common.bits_view(pv)])
+    _equal([common.bits_view(keys)], [common.bits_view(keys_in)])
+    if vals is not None:
+        _equal([common.bits_view(vals)], [common.bits_view(vals_in)])
+
+
+@pytest.mark.parametrize("chunk", [2048, 4096, 8192, 16384, 3000])
+@pytest.mark.parametrize("key_dtype,payload", [(np.uint32, np.uint32), (np.uint64, np.int16),
+                                               (np.float32, None)])
+def test_radix_tiled_chunks_match_cpu(dev, chunk, key_dtype, payload):
+    rng = np.random.default_rng(chunk)
+    n = 3 * chunk + 1234
+    keys = torch.from_numpy((rng.integers(0, 1 << 20, size=n) - (1 << 19)).astype(key_dtype))
+    cfg = vt.SortConfig(chunk=chunk)
+    if payload is None:
+        got = vt.sort(keys.to(dev), backend="radix_tiled", config=cfg)
+        want = vt.sort(keys, backend="radix_tiled", config=cfg)
+        _equal([common.bits_view(got).cpu()], [common.bits_view(want)])
+        return
+    vals = _payload(rng, n, payload)
+    gk, gv = vt.sort_pairs(keys.to(dev), vals.to(dev), backend="radix_tiled", config=cfg)
+    ck, cv = vt.sort_pairs(keys, vals, backend="tiled")
+    _equal([common.bits_view(gk).cpu(), common.bits_view(gv).cpu()],
+           [common.bits_view(ck), common.bits_view(cv)])
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
@@ -323,13 +431,19 @@ def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
     monkeypatch.setattr(histogram, "tile_histograms_plain", refuse)
     monkeypatch.setattr(radix_tiled, "tile_destinations_plain", refuse)
     monkeypatch.setattr(radix_tiled, "pass_destinations_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "tile_scatter_plain", refuse)
+    monkeypatch.setattr(reference, "scatter", refuse)  # torch's scatter, the replaced move
     monkeypatch.setattr(fused, "sort_fused_plain", refuse)
     rng = np.random.default_rng(8)
     for backend, n in [("radix_tiled", (1 << 20) + 3), ("fused", 30_000)]:
         keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
         vals = np.arange(n, dtype=np.uint32)
+        before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches)
         ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                                backend=backend)
+        if backend == "radix_tiled":  # 4 passes, each one histogram and one scatter
+            assert (radix_tiled.tile_scatter.launches,
+                    radix_tiled.tile_destinations.launches) == (before[0] + 4, before[1])
         perm = np.argsort(keys, kind="stable")
         np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
         np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))

@@ -105,13 +105,15 @@ def test_default_route_decides_from_the_tensor():
     from vkradixsort_tpu_torch.ops.dispatch import _route
 
     cpu = torch.zeros(1 << 21, dtype=torch.int32).view(torch.uint32)
-    assert _route(cpu, None, "kv", (cpu,)) == "tiled"
-    assert _route(cpu, "merge", "kv", (cpu,)) == "merge"
-    # the provisional H100 row: stable kv, 4-byte keys and payloads, n >= 2^20
-    assert route_for("kv", (1 << 20) - 1) == "tiled"
-    assert route_for("kv", 1 << 20) == "merge"
-    assert route_for("kv", 1 << 27, wide=True) == "tiled"
-    assert route_for("keys", 1 << 27) == "tiled"
+    assert _route(cpu, None, (cpu,)) == "tiled"
+    assert _route(cpu, "merge", (cpu,)) == "merge"
+    # the H100 rows, stable sorts of 32-bit keys (engine/config.ROUTE_TABLE)
+    assert route_for("kv", 1 << 23) == "tiled"
+    assert route_for("kv", (1 << 23) + 1) == "radix_tiled"
+    assert route_for("keys", 1 << 23) == "tiled"
+    assert route_for("keys", 1 << 24) == "radix_tiled"
+    assert route_for("kv2", 1 << 27) == "tiled"  # torch.sort wins every size measured
+    assert route_for("kv", 1 << 27, wide=True) == "tiled"  # 64-bit keys: not measured
 
 
 def test_bad_calls_raise():

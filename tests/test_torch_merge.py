@@ -15,6 +15,7 @@ import torch
 
 import vkradixsort_tpu as vk
 from vkradixsort_tpu.ops import merge as jmerge
+import vkradixsort_tpu_torch as vt
 from vkradixsort_tpu_torch.ops import merge
 
 T = 4096  # the JAX engine's tile at tile_rows=2, and the port's tile here
@@ -148,6 +149,19 @@ def test_sort_merge_matches_jax_engine(jax_engine_u64_kv):
         np.testing.assert_array_equal(got.numpy(), w)
 
 
+@pytest.mark.parametrize("tile", [3000, 1 << 21])
+def test_any_grain_matches_jax_engine(jax_engine_u64_kv, tile):
+    # a grain the JAX package takes (it floors any grain to a power of two),
+    # through the public API: the port floors it too and caps it at the
+    # largest tile one block sorts, 16384 on the H100 (on the CPU as well),
+    # and gives the JAX engine's stable result
+    (keys, vals), want = jax_engine_u64_kv
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals),
+                           config=vt.SortConfig(tile=tile), backend="merge")
+    for got, w in zip((ok,) + ov, want):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
 @pytest.mark.parametrize(
     "n,key_dtype,payloads",
     [
@@ -231,9 +245,11 @@ def test_default_tile_from_shared_memory():
     for nck in (1, 2):
         assert merge.tilesort_smem(nck, 16384) <= merge.H100_SMEM_PER_BLOCK_OPTIN
         assert 2 * 16384 > merge.TILESORT_MAX_TILE
-    # the merge kernel's output tile: two staged tiles of every plane fit
+    # the merge kernel's output tile for each plane count: two staged tiles
+    # of every plane fit one block
     for nplanes in (1, 2, 3, 4):
-        assert merge.mergepath_smem(nplanes, merge.MERGE_TILE) <= merge.H100_SMEM_PER_BLOCK_OPTIN
+        tile = merge.MERGE_TILES[nplanes]
+        assert merge.mergepath_smem(nplanes, tile) <= merge.H100_SMEM_PER_BLOCK_OPTIN
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

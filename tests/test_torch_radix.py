@@ -1,8 +1,10 @@
 """The PyTorch port's radix engines on CPU tensors, where the kernel wrappers
 run their plain versions, held against the JAX package on the same numpy
-inputs: the histogram and destination kernels of ``radix_tiled``, the
-``fused`` one-launch sort, the ``reference`` radix oracle, and the public
-API through ``backend="radix_tiled"``, ``"fused"`` and ``"reference"``.
+inputs: the histogram kernel and both modes of the rank-and-scatter kernel
+of ``radix_tiled`` (destinations; keys and payload moved), whole passes and
+sorts, the ``fused`` one-launch sort, the ``reference`` radix oracle, and
+the public API through ``backend="radix_tiled"``, ``"fused"`` and
+``"reference"``.
 
 Tolerance: exact (bitwise). Digit counts are integers and a stable sort has
 one right answer. The JAX Pallas kernels run in interpret mode, each shape
@@ -226,6 +228,92 @@ def test_destinations_are_the_stable_permutation(tile):
 
 
 # ---------------------------------------------------------------------------
+# whole passes (histogram, scan, rank and move; on a CPU tensor the plain
+# versions of the histogram and scatter kernels) against JAX's
+# radix_pass_tiled and sort_radix_tiled: Pallas destinations in interpret
+# mode, then XLA's scatter
+
+PASS_CASES = [  # (key dtype, n, shift, tile, kind, payload dtype or None): ragged last tiles
+    (np.uint32, N_SLICE, 8, TILE, "ties", np.uint16),
+    (np.uint32, N_SLICE, 24, TILE, "max", None),
+    (np.uint64, 4097, 48, TILE, "max", np.uint64),
+    (np.uint64, 4097, 0, 1024, "ties", np.float32),
+    (np.uint32, 5000, 16, 1024, "uniform", np.int8),
+]
+
+
+def _payload(seed: int, n: int, dtype) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if np.dtype(dtype).kind == "f":
+        return rng.standard_normal(n).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, int(info.max), size=n, dtype=dtype, endpoint=True)
+
+
+@pytest.fixture(scope="module")
+def jax_passes():
+    out = {}
+    for i, (dtype, n, shift, tile, kind, vdt) in enumerate(PASS_CASES):
+        keys = _keys(40 + i, n, dtype, kind)
+        vals = None if vdt is None else _payload(50 + i, n, vdt)
+        jk, jv = jradix_tiled.radix_pass_tiled(
+            jnp.asarray(keys), None if vals is None else jnp.asarray(vals), shift, tile,
+            interpret=True)
+        out[i] = keys, vals, np.asarray(jk), None if jv is None else np.asarray(jv)
+    return out
+
+
+@pytest.mark.parametrize("i", range(len(PASS_CASES)),
+                         ids=[f"{c[0].__name__}-{c[1]}-{c[2]}-{c[3]}-{c[4]}-"
+                              f"{getattr(c[5], '__name__', None)}" for c in PASS_CASES])
+def test_radix_pass_tiled_matches_jax(jax_passes, i):
+    keys, vals, jk, jv = jax_passes[i]
+    shift, tile = PASS_CASES[i][2:4]
+    before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches,
+              histogram.tile_histograms.launches)
+    tk, tv = _t(keys), None if vals is None else _t(vals)
+    ok, ov = radix_tiled.radix_pass_tiled(tk, tv, shift, tile)
+    _eq(ok, jk)
+    if vals is None:
+        assert ov is None
+    else:
+        _eq(ov, jv)
+        _eq(tv, vals)  # the input is not written
+    _eq(tk, keys)
+    assert (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches,
+            histogram.tile_histograms.launches) == before  # CPU: the plain versions
+
+
+def test_sort_radix_tiled_matches_jax():
+    # the whole sort, u32 keys with ties and a 2-byte payload: JAX's four
+    # passes at this size and tile are the slice fixture's compiles
+    keys = _keys(60, N_SLICE, np.uint32, "ties")
+    vals = _payload(61, N_SLICE, np.int16)
+    jk, jv = jradix_tiled.sort_radix_tiled(jnp.asarray(keys), jnp.asarray(vals), TILE,
+                                           interpret=True)
+    ok, ov = radix_tiled.sort_radix_tiled(_t(keys), _t(vals), TILE)
+    _eq(ok, jk)
+    _eq(ov, jv)
+
+
+@pytest.mark.parametrize("tile", [1, 100, 4096])
+def test_tile_scatter_moves_to_the_destinations(tile):
+    # the scatter mode's plain version is the destination mode's, applied
+    keys = _keys(6, 2500, np.uint64, "max")
+    vals = _payload(7, 2500, np.int16)
+    base = reference.exclusive_bin_offsets(histogram.tile_histograms(_t(keys), 56, tile))
+    dest = radix_tiled.tile_destinations(_t(keys), 56, tile, base).numpy()
+    ok, ov = radix_tiled.tile_scatter(_t(keys), _t(vals), 56, tile, base)
+    want_k, want_v = np.empty_like(keys), np.empty_like(vals)
+    want_k[dest], want_v[dest] = keys, vals
+    _eq(ok, want_k)
+    _eq(ov, want_v)
+    ok, none = radix_tiled.tile_scatter(_t(keys), None, 56, tile, base)
+    assert none is None
+    _eq(ok, want_k)
+
+
+# ---------------------------------------------------------------------------
 # the fused kernel's wrapper against the JAX kernel (interpret mode)
 
 FUSED_CASES = [
@@ -378,7 +466,9 @@ def test_one_payload_engines_refuse_two(backend):
 def test_fused_refuses_more_than_fused_max_n():
     cfg = vt.SortConfig()
     assert cfg.fused_max_n == JaxSortConfig().fused_max_n == 1 << 15
-    assert cfg.chunk == JaxSortConfig().chunk == TILE
+    # the radix_tiled chunk: JAX's 2048, the port's 16384 from the H100 sweep
+    # (PERF.md); the sorted result does not depend on it
+    assert (JaxSortConfig().chunk, cfg.chunk) == (TILE, 16384)
     with pytest.raises(ValueError, match="fused_max_n"):
         vt.sort(torch.zeros(cfg.fused_max_n + 1, dtype=torch.int32), backend="fused")
     with pytest.raises(ValueError, match="fused_max_n"):
@@ -412,7 +502,14 @@ def test_radix_wrappers_reject_what_the_kernels_do_not_take():
         histogram.tile_histograms(k, 32)  # past the key's width
     with pytest.raises(ValueError):
         radix_tiled.tile_destinations(k, 0, 4, torch.zeros((3, 256), dtype=torch.int32))
+    base = torch.zeros((2, 256), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        radix_tiled.tile_scatter(k, torch.zeros(7, dtype=torch.int32), 0, 4, base)
+    with pytest.raises(TypeError, match="payloads"):
+        radix_tiled.tile_scatter(k, torch.zeros(8, dtype=torch.complex128), 0, 4, base)
     meta = torch.zeros(8, dtype=torch.int32, device="meta").view(torch.uint32)
+    with pytest.raises(ValueError, match="CUDA"):
+        radix_tiled.tile_scatter(meta, None, 0, 4, base.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         histogram.tile_histograms(meta, 0)  # neither the CPU's plain version nor a kernel
     with pytest.raises(ValueError, match="CUDA"):

@@ -381,6 +381,16 @@ def test_api_argsort_and_sort_match_jax(jax_api):
     _eq(vt.sort(_t(i64), config=cfg, backend="samplesort", descending=True), jsorted)
 
 
+@pytest.mark.parametrize("tile", [3000, 1 << 21])
+def test_api_any_grain_matches_jax(jax_api, tile):
+    # samplesort takes any grain the JAX package takes (its geometry divides
+    # n by the grain, as JAX's does); the stable answer does not depend on it
+    (k, v), (jk, jv) = jax_api[("kv", False)]
+    ok, ov = vt.sort_pairs(_t(k), _t(v), config=vt.SortConfig(tile=tile), backend="samplesort")
+    _eq(ok, jk)
+    _eq(ov, jv)
+
+
 def test_api_default_grain_and_tiny_inputs():
     rng = np.random.default_rng(80)
     keys = rng.integers(0, 50, size=5000).astype(np.int32)

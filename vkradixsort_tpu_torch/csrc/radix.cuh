@@ -1,8 +1,9 @@
 // Primitives shared by the radix kernels (histogram.cu, radix_dest.cu,
 // fused.cu, tilesort.cu): an 8-bit digit of a key, an element packed with
-// its position in one shared-memory slot, and the stable rank of a warp's
+// its position in one shared-memory slot, the stable rank of a warp's
 // elements among equal digits, found by __match_any_sync (strip_rank) or by
-// eight ballots (strip_rank_ballot).
+// eight ballots (strip_rank_ballot), and the block scan of an in-block pass
+// (block_digit_offsets).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +81,47 @@ __device__ __forceinline__ int strip_rank_ballot(int* counter, unsigned d, bool 
   if (valid && rank == 0) counter[d] = start + __popc(peers);
   __syncwarp();
   return start + rank;
+}
+
+// The block scan of one in-block radix pass (tilesort.cu, radix_dest.cu):
+// turns each warp's digit counts, row w of `count` (nwarps rows of 256, in
+// shared memory), into that warp's first slot for each digit in the block's
+// digit-sorted order: the elements of smaller digits, then those of the same
+// digit in earlier warps. Every thread of the block calls it after a barrier
+// that completes the counts; threads 0-255 (one per digit) do the work, so
+// the block has at least 256 threads. It returns, to thread d < 256, the
+// first slot of digit d and in `total` the digit's count (0 to the others).
+// `warp_sum`: 8 ints of shared memory. The rows hold the slots after the
+// caller's next barrier.
+__device__ __forceinline__ int block_digit_offsets(int* count, int nwarps, int* warp_sum,
+                                                   int& total) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int inc = 0;
+  total = 0;
+  if (threadIdx.x < kBins) {
+    for (int w = 0; w < nwarps; ++w) total += count[w * kBins + threadIdx.x];
+    inc = total;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) warp_sum[warp] = inc;
+  }
+  __syncthreads();
+  int start = 0;
+  if (threadIdx.x < kBins) {
+    start = inc - total;
+    for (int w = 0; w < warp; ++w) start += warp_sum[w];
+    int run = start;
+    for (int w = 0; w < nwarps; ++w) {
+      const int c = count[w * kBins + threadIdx.x];
+      count[w * kBins + threadIdx.x] = run;
+      run += c;
+    }
+  }
+  return start;
 }
 
 }  // namespace vkrs

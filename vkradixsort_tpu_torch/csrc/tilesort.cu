@@ -164,28 +164,8 @@ __global__ void __launch_bounds__(kTileMaxThreads)
     }
     __syncthreads();
 
-    // one thread per digit (warps 0-7): the digit's start, then each warp's
-    int total = 0, inc = 0;
-    if (threadIdx.x < kBins) {
-      for (int w = 0; w < nwarps; ++w) total += count[w * kBins + threadIdx.x];
-      inc = total;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, inc, o);
-        if (lane >= o) inc += y;
-      }
-      if (lane == 31) warp_sum[warp] = inc;
-    }
-    __syncthreads();
-    if (threadIdx.x < kBins) {
-      int run = inc - total;
-      for (int w = 0; w < warp; ++w) run += warp_sum[w];
-      for (int w = 0; w < nwarps; ++w) {
-        const int c = count[w * kBins + threadIdx.x];
-        count[w * kBins + threadIdx.x] = run;
-        run += c;
-      }
-    }
+    int total;
+    block_digit_offsets(count, nwarps, warp_sum, total);
     __syncthreads();
 
 #pragma unroll

@@ -1,8 +1,8 @@
 """Sort configuration and the default-routing table.
 
 Port of ``vkradixsort_tpu/engine/config.py``. The JAX package's tables were
-measured on another chip; none of their rows carries over. The tables here
-start with one provisional row and grow only with measurements on the card.
+measured on another chip; none of their rows carries over. Every row here
+is a measurement on the H100.
 """
 
 from __future__ import annotations
@@ -22,12 +22,17 @@ class SortConfig:
         whole array on chip, so on the card the kernel itself takes at most
         ``ops/fused.MAX_N`` (32768, the default).
       chunk: elements per tile of the radix_tiled pipeline: each histogram
-        row and each block of the destination kernel covers ``chunk``
-        consecutive keys.
+        row and each block of the rank-and-scatter kernel covers ``chunk``
+        consecutive keys. 16384, the fastest of the H100 sweep of a 1e8
+        stable u32 kv sort over 2048 to 16384 (PERF.md; the JAX package
+        takes 2048): a tile's run of each digit fills more of its write
+        sectors, and the ``[tiles, 256]`` table and its scan shrink. The
+        sorted result does not depend on it.
       tile: grain size in elements per tile. The merge engine's tile-sort
-        kernel sorts tiles of ``tile`` elements (a power of two); the
-        samplesort engine takes it as its tile and bucket target, as in the
-        JAX package. ``None`` (default): merge takes the largest tile whose
+        kernel sorts tiles of ``tile`` elements, floored to a power of two
+        and capped at ``ops/merge.default_tile`` as the JAX package floors
+        it; the samplesort engine takes it as its tile and bucket target,
+        as in the JAX package. ``None`` (default): merge takes the largest tile whose
         keys, positions and digit counters fit one tile-sort block's shared
         memory (``ops/merge.default_tile``);
         samplesort takes the JAX package's defaults, 2^19 keys-only and
@@ -35,7 +40,7 @@ class SortConfig:
     """
 
     fused_max_n: int = 1 << 15
-    chunk: int = 2048
+    chunk: int = 16384
     tile: int | None = None
 
     def replace(self, **kw) -> "SortConfig":
@@ -47,16 +52,28 @@ DEFAULT_CONFIG = SortConfig()
 
 # Default route of ``backend=None`` for CUDA tensors, per operation and size:
 # rows are (max_n, engine), scanned in order; the first row with n <= max_n
-# wins, and an operation without rows routes to "tiled". "kv" means 32-bit
-# encoded keys with at most two payloads, all 4 bytes wide; 64-bit keys look up the
-# same name with "64" appended.
+# wins, and an operation without rows routes to "tiled". The operations are
+# stable sorts of 32-bit encoded keys: "keys" alone, "kv" with one 4-byte
+# payload, "kv2" with two; 64-bit keys would look up the same name with "64"
+# appended (no such rows: not measured), and other payload sets take
+# "tiled" (ops/dispatch._route).
 #
-# PROVISIONAL: 2^20 is where the main path's sizes begin, not a measured
-# crossover between the merge engine and torch.sort on the H100. Measuring
-# the crossovers (and adding rows for the other operations) is ROADMAP
-# queue 1 item 6.
+# Every row is an H100 measurement (chip_smoke.py's crossover phase, PERF.md
+# section 5, 700 W): at 2^16, 2^18, ..., 2^26 and 1e8, each engine in turns,
+# in five runs. An engine leaves the library ("tiled", torch.sort) only at
+# sizes where it was faster in both turns of every run; a row's bound is
+# the geometric middle between the last size measured on one side and the
+# first on the other.
+#   - kv and keys: torch.sort up to 2^22 (kv 0.374-0.463 ms there against
+#     radix_tiled's 0.486-0.487); radix_tiled from 2^24 (kv 0.90 against
+#     1.47 ms; 1e8 4.94 against 9.22; keys 1e8 3.64 against 5.75). Merge
+#     beat torch.sort on keys at 2^22 in three runs (0.266 against 0.325 ms)
+#     and lost in two whose host was slower, so it has no row.
+#   - kv2: torch.sort at every size from 2^18 (1e8: 12.68 against merge's
+#     18.98 ms); radix_tiled takes one payload.
 ROUTE_TABLE: dict = {
-    "kv": [((1 << 20) - 1, "tiled"), (float("inf"), "merge")],
+    "keys": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
+    "kv": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
 }
 
 

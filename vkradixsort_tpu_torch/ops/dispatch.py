@@ -7,8 +7,9 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
   "tiled"        ``torch.sort(stable=True)`` in sign-flipped int space
                  (ops/tiled.py); every device, every dtype
   "merge"        tile-sort + merge-path ladder (ops/merge.py)
-  "radix_tiled"  per-pass histogram, scan, destinations and scatter
-                 (ops/radix_tiled.py); at most one payload
+  "radix_tiled"  per pass a histogram, a scan, then one kernel that ranks
+                 and moves keys and payload (ops/radix_tiled.py); at most
+                 one payload, n < 2^31
   "fused"        the whole LSD radix sort in one launch of one block
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
                  one payload of 4 or 8 bytes
@@ -21,10 +22,11 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
 The merge, radix_tiled, fused, bitonic and samplesort engines launch
 hand-written CUDA kernels on CUDA tensors and run their plain versions on
 CPU tensors. ``backend=None`` decides from the tensor, up front: CUDA
-tensors follow ``engine/config.ROUTE_TABLE``; CPU tensors take "tiled". No
-default route leads to radix_tiled, fused, reference, bitonic or
-samplesort yet. Every entry point is stable
-and bitwise-exact against the JAX package on the same inputs.
+tensors follow ``engine/config.ROUTE_TABLE`` (tiled or radix_tiled, by
+operation and size, as measured on the H100); CPU tensors take "tiled".
+No default route leads to merge, fused, reference, bitonic or samplesort. Every
+entry point is stable and bitwise-exact against the JAX package on the
+same inputs.
 """
 
 from __future__ import annotations
@@ -54,7 +56,13 @@ from vkradixsort_tpu_torch.ops.common import (
 ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
 
 
-def _route(keys: torch.Tensor, backend: str | None, op: str, vals: tuple = ()) -> str:
+def _route(keys: torch.Tensor, backend: str | None, vals: tuple = ()) -> str:
+    """The engine of a call: ``backend`` when given; else "tiled" for CPU
+    tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of the call's
+    operation ("keys", "kv" with one 4-byte payload, "kv2" with two) and
+    size, or "tiled" for other payload sets. A row never sends a call to an
+    engine that refuses it (JAX's rule): radix_tiled takes one payload and
+    n < 2^31, merge at most two carry planes."""
     if backend is not None:
         if backend not in ENGINES:
             raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
@@ -62,9 +70,13 @@ def _route(keys: torch.Tensor, backend: str | None, op: str, vals: tuple = ()) -
     if keys.device.type != "cuda":
         return "tiled"
     if any(v.element_size() != 4 for v in vals) or len(vals) > merge.MAX_KERNEL_CARRY:
-        return "tiled"  # the table's kv rows are for at most two 4-byte payloads
-    wide = sortable_dtype(keys.dtype) == torch.uint64
-    return route_for(op, keys.shape[0], wide)
+        return "tiled"  # the table's rows are for at most two 4-byte payloads
+    n = keys.shape[0]
+    op = ("keys", "kv", "kv2")[len(vals)]
+    path = route_for(op, n, sortable_dtype(keys.dtype) == torch.uint64)
+    if path == "radix_tiled" and (len(vals) > 1 or n >= 1 << 31):
+        return "tiled"
+    return path
 
 
 def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str):
@@ -157,7 +169,7 @@ def sort(
         return sort_segments(keys, descending=descending)
     if keys.dim() != 1:
         raise ValueError(f"sort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
-    path = _route(keys, backend, "keys")
+    path = _route(keys, backend)
     out, _ = _sort_encoded_keys(keys, (), config, path, descending)
     return out
 
@@ -192,7 +204,7 @@ def sort_pairs(
         )
     if any(v.device != keys.device for v in vals):
         raise ValueError("keys and values must lie on one device")
-    path = _route(keys, backend, "kv", vals)
+    path = _route(keys, backend, vals)
     out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
     return out_k, (type(values)(out_vs) if multi else out_vs[0])
 

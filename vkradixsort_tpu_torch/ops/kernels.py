@@ -97,6 +97,7 @@ def load() -> ctypes.CDLL:
         "mergepath": planes + [i64, i32],
         "histogram": [ptr, i64, i32, i32, i32, ptr],
         "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
+        "radix_scatter": [ptr, i32, ptr, i32, i64, i32, i32, ptr, ptr, ptr],
         "fused": [ptr, ptr, ptr, ptr, i32, i32, i32],
         "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i32, ints, i32],
         "bitonic_group": [ptr, i32, i64, i32, i32, i32],

@@ -49,11 +49,17 @@ TILESORT_PER_THREAD = 16
 TILESORT_MIN_THREADS = 256
 TILESORT_MAX_TILE = TILESORT_PER_THREAD * 1024
 
-# The merge-path kernel (csrc/mergepath.cu): output tiles of MERGE_TILE
-# elements, two staged tiles in shared memory. In the H100 sweep (PERF.md)
-# 8192 was within 0.5% of 4096; 4096 fits two blocks an SM at every plane
-# count.
-MERGE_TILE = 4096
+# The merge-path kernel (csrc/mergepath.cu): output tiles of MERGE_TILES[p]
+# elements for p planes (keys and carries), two staged tiles in shared
+# memory, as many persistent blocks as fit an SM. A block takes
+# mergepath_smem(p, tile) bytes and an SM holds 233,472, less 1 KB a block:
+# at 4096, three blocks an SM at 1 plane, two at 2, one at 3 and 4; 8192
+# fits one block at 1 and 2 planes and none at 3 or 4. Each entry is the
+# fastest tile of the H100 sweep of a 1e8 sort's merge levels (PERF.md): 1
+# plane 4096 (2048 and 8192 12-23% slower), 2 planes 8192 (0.3-0.7% faster
+# than 4096), 3 planes 2048 (7% faster than 4096), 4 planes 4096 (1.3-1.6%
+# faster than 2048).
+MERGE_TILES = {1: 4096, 2: 8192, 3: 2048, 4: 4096}
 MERGE_STAGES = 2
 MERGE_SLACK = 16  # ints a staged plane holds past its tile
 MERGE_HEADER = 256  # bytes of barriers and tile records
@@ -264,14 +270,14 @@ def mergepath_level(planes: list, nck: int, run: int, *, out_tile: int | None = 
     """Merge each pair of sorted runs of ``run`` elements (a power of two)
     into one sorted run of ``2 * run``, stably. Returns new planes.
     ``out_tile``: the kernel's output tile, a power of two >= 4 (default
-    ``MERGE_TILE``); the result does not depend on it."""
+    ``MERGE_TILES`` for the plane count); the result does not depend on it."""
     _check_planes(planes, nck)
     _check_pow2("run", run)
     if planes[0].device.type == "cpu":
         return mergepath_level_plain(planes, nck, run)
     _check_kernel_planes(planes, nck)
     if out_tile is None:
-        out_tile = MERGE_TILE
+        out_tile = MERGE_TILES[len(planes)]
     if out_tile < 4 or out_tile & (out_tile - 1):
         raise ValueError(f"out_tile must be a power of two >= 4, got {out_tile}")
     smem = mergepath_smem(len(planes), min(out_tile, 2 * run))
@@ -298,10 +304,13 @@ def sort_merge_planes(planes: list, nck: int, *, tile: int | None = None) -> lis
 
     ``planes``: 1-D int32 tensors of one length on one device, compare
     planes (signed order, see ops/segsort.to_signed_order) first. ``tile``
-    is the tile-sort grain in elements (default: :func:`default_tile`).
+    is the tile-sort grain in elements (default: :func:`default_tile`): any
+    grain the JAX package takes, floored to a power of two of at least 2 (as
+    its ``grain_to_tile_rows`` floors) and capped at :func:`default_tile`,
+    the largest tile one block sorts; the result does not depend on it.
     Runs one tile sort and ceil(log2(n / tile)) merge levels."""
-    if tile is None:
-        tile = default_tile(nck, planes[0].device)
+    cap = default_tile(nck, planes[0].device)
+    tile = cap if tile is None else min(1 << max(int(tile).bit_length() - 1, 1), cap)
     out = tilesort(planes, nck, tile)
     run = tile
     while run < out[0].numel():

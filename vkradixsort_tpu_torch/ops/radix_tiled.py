@@ -7,14 +7,16 @@ the reference's two shaders per pass do:
      ``csrc/histogram.cu``);
   2. ``reference.exclusive_bin_offsets``: the global scan of the
      ``[num_tiles, 256]`` table, in torch (XLA did it in the JAX package);
-  3. ``tile_destinations``: each element's destination, its tile's base for
-     its digit plus its stable rank among equal digits of the tile (kernel
-     ``csrc/radix_dest.cu``);
-  4. the scatter of keys and payload to those destinations, in torch on
-     int32/int64 bit views, as the JAX package left it to XLA.
+  3. ``tile_scatter``: each element ranked among the equal digits of its
+     tile and moved, with its payload, to its tile's base for its digit plus
+     that rank (kernel ``csrc/radix_dest.cu``, scatter mode), where the JAX
+     package computed the destinations in its kernel and left the move to
+     XLA.
 
-Each kernel wrapper takes its plain version only for a CPU tensor. The
-destinations are int32, as in JAX, so the pipeline takes n < 2^31.
+``tile_destinations`` is the same kernel's destination mode: it writes the
+destinations and moves nothing (JAX's ``pass_destinations``). Each kernel
+wrapper takes its plain version only for a CPU tensor. The destinations
+are int32, as in JAX, so the pipeline takes n < 2^31.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from vkradixsort_tpu_torch.ops.common import (
     num_passes,
 )
 
+PAYLOAD_BYTES = (1, 2, 4, 8)  # payload widths the scatter kernel moves
+
+
 def _check_input(enc: torch.Tensor, shift: int, tile: int) -> None:
     histogram.check_digit_input(enc, shift, tile)
     if enc.shape[0] >= 1 << 31:
@@ -39,9 +44,18 @@ def _check_input(enc: torch.Tensor, shift: int, tile: int) -> None:
         )
 
 
+def _check_base(enc: torch.Tensor, tile: int, base: torch.Tensor) -> None:
+    n = enc.shape[0]
+    if base.dtype != torch.int32 or tuple(base.shape) != (cdiv(n, tile), NUM_BINS):
+        raise ValueError(f"base must be [{cdiv(n, tile)}, {NUM_BINS}] int32, got "
+                         f"{base.dtype} {tuple(base.shape)}")
+    if enc.device.type != "cpu" and (base.device != enc.device or not base.is_contiguous()):
+        raise ValueError("base must be contiguous and on the keys' device")
+
+
 def tile_destinations_plain(enc: torch.Tensor, shift: int, tile: int,
                             base: torch.Tensor) -> torch.Tensor:
-    """Plain version of the destination kernel: ``base[tile, digit]`` plus
+    """Plain version of the destination mode: ``base[tile, digit]`` plus
     the stable in-tile rank, from a stable sort of each tile's digits (the
     ragged last tile is padded with digit 256, which ranks after every real
     digit)."""
@@ -61,15 +75,11 @@ def tile_destinations(enc: torch.Tensor, shift: int, tile: int,
     d_j = d_i)``, ``d_i = (enc[i] >> shift) & 0xFF``; ``base`` is the
     ``[cdiv(n, tile), 256]`` int32 table of ``exclusive_bin_offsets``."""
     _check_input(enc, shift, tile)
-    n = enc.shape[0]
-    if base.dtype != torch.int32 or tuple(base.shape) != (cdiv(n, tile), NUM_BINS):
-        raise ValueError(f"base must be [{cdiv(n, tile)}, {NUM_BINS}] int32, got "
-                         f"{base.dtype} {tuple(base.shape)}")
+    _check_base(enc, tile, base)
     if enc.device.type == "cpu":
         return tile_destinations_plain(enc, shift, tile, base)
     x, stride, sh = histogram.digit_half(enc, shift)
-    if base.device != enc.device or not base.is_contiguous():
-        raise ValueError("base must be contiguous and on the keys' device")
+    n = enc.shape[0]
     dest = torch.empty(n, dtype=torch.int32, device=enc.device)
     if n:
         kernels.call("radix_dest", enc.device, x.data_ptr(), n, stride, sh, tile,
@@ -79,6 +89,49 @@ def tile_destinations(enc: torch.Tensor, shift: int, tile: int,
 
 
 tile_destinations.launches = 0
+
+
+def tile_scatter_plain(enc: torch.Tensor, values, shift: int, tile: int, base: torch.Tensor):
+    """Plain version of the scatter mode: the plain destinations, widened to
+    int64 for torch's indexing, then a scatter of the keys and ``values``
+    (or None)."""
+    dest = tile_destinations_plain(enc, shift, tile, base).to(torch.int64)
+    out_v = None if values is None else reference.scatter(values, dest)
+    return reference.scatter(enc, dest), out_v
+
+
+def tile_scatter(enc: torch.Tensor, values, shift: int, tile: int, base: torch.Tensor):
+    """Keys and ``values`` (or None) moved to the destinations
+    :func:`tile_destinations` gives, in one kernel that ranks and moves:
+    ``(out_keys, out_values)``. ``values``: one payload of 1, 2, 4 or 8
+    bytes an element, the keys' length. The inputs are not modified."""
+    _check_input(enc, shift, tile)
+    _check_base(enc, tile, base)
+    if values is not None:
+        if values.shape != enc.shape or values.device != enc.device:
+            raise ValueError("values must have the keys' shape and device")
+        if values.element_size() not in PAYLOAD_BYTES:
+            raise TypeError(f"radix_tiled moves payloads of {PAYLOAD_BYTES} bytes, "
+                            f"got {values.dtype}")
+    if enc.device.type == "cpu":
+        return tile_scatter_plain(enc, values, shift, tile, base)
+    if enc.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc.device}")
+    if not enc.is_contiguous() or (values is not None and not values.is_contiguous()):
+        raise ValueError("the scatter kernel takes contiguous keys and values")
+    n = enc.shape[0]
+    out_k = torch.empty_like(enc)
+    out_v = None if values is None else torch.empty_like(values)
+    if n:
+        kernels.call("radix_scatter", enc.device, enc.data_ptr(), enc.element_size(),
+                     0 if values is None else values.data_ptr(),
+                     0 if values is None else values.element_size(), n, shift, tile,
+                     base.data_ptr(), out_k.data_ptr(), 0 if out_v is None else out_v.data_ptr())
+        tile_scatter.launches += 1
+    return out_k, out_v
+
+
+tile_scatter.launches = 0
 
 
 def pass_destinations_plain(enc: torch.Tensor, shift: int, tile: int = DEFAULT_CONFIG.chunk):
@@ -99,12 +152,12 @@ def pass_destinations(enc: torch.Tensor, shift: int,
 
 
 def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = DEFAULT_CONFIG.chunk):
-    """One stable radix pass: destinations, then the scatter of the keys and
-    ``values`` (or None). The int32 destinations widen to int64 once per
-    pass, for torch's indexing."""
-    dest = pass_destinations(enc, shift, tile).to(torch.int64)
-    out_v = None if values is None else reference.scatter(values, dest)
-    return reference.scatter(enc, dest), out_v
+    """One stable radix pass of the keys and ``values`` (or None): the
+    histogram, the scan, then the rank and the move in one kernel. Returns
+    ``(out_keys, out_values)``."""
+    _check_input(enc, shift, tile)
+    base = reference.exclusive_bin_offsets(histogram.tile_histograms(enc, shift, tile))
+    return tile_scatter(enc, values, shift, tile, base)
 
 
 def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
@@ -115,6 +168,7 @@ def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.
     if values is not None and values.shape != enc.shape:
         raise ValueError("values must have the keys' shape")
     enc = enc.contiguous()
+    values = None if values is None else values.contiguous()
     if enc.shape[0] <= 1:
         return enc.clone(), None if values is None else values.clone()
     for p in range(num_passes(enc.dtype)):

@@ -56,10 +56,12 @@ def chunk_histograms(keys: torch.Tensor, shift: int, num_chunks: int) -> torch.T
 def exclusive_bin_offsets(hist: torch.Tensor) -> torch.Tensor:
     """Global digit offsets per chunk, ``[num_chunks, 256]`` int32, in
     bin-major order: offset[c, b] = (count of all digits < b) + (count of
-    digit b in chunks < c)."""
-    flat = hist.t().reshape(-1).to(torch.int64)  # [b * num_chunks + c]
-    scanned = torch.cumsum(flat, 0) - flat
-    return scanned.view(hist.shape[1], hist.shape[0]).t().to(torch.int32).contiguous()
+    digit b in chunks < c). The scan runs in int32: its outputs are below
+    n, and the radix engines take n < 2^31 (an int32 sum that passes 2^31
+    on the last element wraps, and the exclusive offsets stay exact)."""
+    flat = hist.t().reshape(-1)  # [b * num_chunks + c]
+    scanned = torch.cumsum(flat, 0, dtype=torch.int32) - flat
+    return scanned.view(hist.shape[1], hist.shape[0]).t().contiguous()
 
 
 def rank_in_chunk(digits: torch.Tensor) -> torch.Tensor:
