@@ -7,13 +7,17 @@ one line each: the stable u32 key-value sort
 ``vkradixsort_tpu_torch.sort_pairs(keys, arange)`` on ``backend="merge"``
 and on ``backend="radix_tiled"`` (one of them the default route at 1e8,
 ``engine/config.ROUTE_TABLE``), the one-launch ``backend="fused"`` sort of
-a small array, and ``backend="bitonic"`` and ``backend="samplesort"``.
+a small array, ``backend="bitonic"`` and ``backend="samplesort"``, and the
+distributed sort ``parallel.distributed.sort_sharded`` over 8 logical
+shards of the card and over NCCL.
 
   1. probe the card (``nvidia-smi`` name and power limit);
   2. build the kernels from the sources in this checkout;
   3. hold each kernel bitwise against its plain PyTorch version on the card:
      the tile sort on tiles with heavy ties and a ragged last tile, the
-     merge-path kernel on every level of a 1e6-element sort, the histogram
+     merge-path kernel on every level of a 1e6-element sort, both at three
+     compare planes too (u64 keys with ties and dtype-max keys, and a gidx
+     plane, ragged, 0-2 carries), the histogram
      kernel, the rank-and-scatter kernel in both its modes (destinations
      only; keys and payloads of 0, 1, 2, 4 and 8 bytes moved) and the fused
      sort on ragged sizes, ties, keys equal to the dtype's maximum, tiles
@@ -72,7 +76,25 @@ a small array, and ``backend="bitonic"`` and ``backend="samplesort"``.
      payload and u32 keys alone through ``torch.sort`` (tiled), merge and
      radix_tiled, and kv with two 4-byte payloads through tiled and merge,
      at 2^16 to 2^26 and 1e8, in turns in this one process, each beside the
-     engine the table picks.
+     engine the table picks;
+ 11. the distributed sort: ``sort_sharded`` over ``LocalMesh([cuda:0] *
+     8)`` at 1e8 stable u32 kv, overlap_chunks 1 and 2, local engine "xla"
+     and "merge", each exact on the device with no overflow, balance <=
+     1.25, its tile-sort and merge-path launches (exactly as many as its
+     local sorts need) and peak memory, the device ms by step (a profiler
+     trace of the body's ``sort_sharded/<step>`` ranges) beside one
+     ``sort_pairs``; on the merge runs, the tile sort and every merge level
+     bitwise against their plain versions on the very planes the run gives
+     the merge engine (a shard's local sort and its final sort, default
+     tiles and output tiles); ``dryrun_multichip(8)`` on the card; u64 Zipf
+     kv at 1e7 on the merge engine (three compare planes) against numpy,
+     its merge inputs checked the same way; ``GroupMesh`` on NCCL at world
+     size 1 at 1e8, exact; the tile sort and merge levels at two and three
+     compare planes on one 1.25e7 shard, bitwise against their plain
+     versions and timed; and
+     the crossovers behind ``ROUTE_TABLE["dist_local"]``: the local (key,
+     gidx) sort with one payload through "xla" and "merge", 2^16 to 2^24,
+     u32 and u64 keys, in turns.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
@@ -80,8 +102,10 @@ error against its plain version, its time, its plain version's time, the
 least time the card could take (``bound_ms``: the larger of the bytes moved
 over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
-summed over the launches of one main-path run; the bitonic and fused
-entries also quote their times before their redesign and the radix_dest
+summed over the launches of one main-path run (the tile-sort and merge-path
+entries also carry their launches in the distributed sort's C = 1 merge
+run, and their ms at two and three compare planes on one shard); the
+bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
 PERF.md, as text. The last is the run's JSON result. Without a CUDA device, or without the package beside
 it, it exits non-zero and prints no result.
@@ -948,14 +972,16 @@ def merge_tile_sweep(dev, smi: str) -> dict:
 MERGE_PLANE_CASES = [  # (what, key planes, carry planes)
     ("u32 keys", 1, 0), ("u32 kv", 1, 1), ("u32 kv with two 4-byte payloads", 1, 2),
     ("u64 keys", 2, 0), ("u64 keys with a u64 payload", 2, 2),
+    ("u64 keys, gidx and a 4-byte payload", 3, 1), ("u64 keys, gidx and two 4-byte payloads", 3, 2),
 ]
 
 
 def merge_plane_sweep(dev, smi: str) -> dict:
     """The merge kernel's output tile by plane count: 2048, 4096 and 8192
     (where two staged tiles fit one block's shared memory), summed over the
-    merge levels of a 1e8 sort at 1, 2, 3 and 4 planes, each level's result
-    bitwise equal across tiles. Returns {what: {tile: ms}}."""
+    merge levels of a 1e8 sort at 1 to 5 planes (three compare planes: a
+    u64 key and the distributed sort's gidx), each level's result bitwise
+    equal across tiles. Returns {what: {tile: ms}}."""
     optin = merge.smem_limits(dev)[0]
     sweep = {}
     for what, nck, ncarry in MERGE_PLANE_CASES:
@@ -1012,6 +1038,373 @@ def crossovers(dev, smi: str) -> dict:
             phase("time", f"crossover {op} n={n}: " + ", ".join(
                 f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
                 + f" ms; fastest {best}, the table routes {route_for(op, n)} [{smi}]")
+    return out
+
+
+# --- 11. the distributed sort (parallel/distributed.py) on one card
+
+DIST_P = 8  # logical shards of the card, as the JAX package's 8 CPU devices
+N_DIST_U64 = 10_000_000
+DIST_LOCAL_SIZES = (1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24)
+
+
+def nck3_planes(dev, rng, n: int, ncarry: int) -> list:
+    """The distributed sort's merge planes for u64 keys: the key as (hi,
+    lo) in signed order (ties, keys equal to the dtype's maximum), gidx (a
+    permutation of 0..n-1, as after the interleave) and random carries."""
+    keys = torch.from_numpy(radix_keys(rng, n, np.uint64, "max")).to(dev)
+    s = keys.view(torch.int64) ^ (-(1 << 63))
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    return [(s >> 32).to(torch.int32), s.to(torch.int32) ^ _MIN32,
+            torch.randperm(n, device=dev, generator=gen).to(torch.int32)] + [
+        torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+        for _ in range(ncarry)]
+
+
+def compare_sort_chain(planes: list, nck: int) -> dict:
+    """The kernels of one ``merge.sort_merge_planes`` call, each against its
+    plain version on the same inputs: the tile sort at the default tile,
+    then every merge level at the default output tile
+    (``merge.MERGE_TILES`` by plane count). Returns the largest errors, the
+    tile, the output tile and the number of levels."""
+    n = planes[0].numel()
+    tile = merge.default_tile(nck, planes[0].device)
+    cur = merge.tilesort(planes, nck, tile)
+    e_tile = max_abs_err(cur, merge.tilesort_plain(planes, nck, tile))
+    run, e_merge, levels = tile, 0, 0
+    while run < n:
+        nxt = merge.mergepath_level(cur, nck, run)
+        e_merge = max(e_merge, max_abs_err(nxt, merge.mergepath_level_plain(cur, nck, run)))
+        cur, run, levels = nxt, 2 * run, levels + 1
+    return {"tilesort": e_tile, "mergepath": e_merge, "tile": tile,
+            "out_tile": merge.MERGE_TILES[len(planes)], "levels": levels}
+
+
+def merged_err(err: dict, *results) -> dict:
+    """``err`` with each kernel's error raised to the largest of ``results``;
+    raises if any of them is not 0."""
+    out = {k: max([v] + [r[k] for r in results if k in r]) for k, v in err.items()}
+    if any(r.get(k, 0) for r in results for k in ("tilesort", "mergepath")):
+        raise AssertionError(f"the merge kernels disagree with their plain versions: {results}")
+    return out
+
+
+def compare_nck3(dev, rng) -> dict:
+    """The tile sort and every merge level at three compare planes, bitwise
+    against their plain versions: u64 keys with ties and dtype-max keys plus
+    a gidx plane, 0-2 carries, ragged lengths."""
+    err = {"tilesort": 0, "mergepath": 0}
+    tile = merge.default_tile(3, dev)
+    for n, ncarry in [(5 * tile + 777, 1), (3 * tile + 5, 2), (2 * tile, 0), (1_000_003, 1)]:
+        r = compare_sort_chain(nck3_planes(dev, rng, n, ncarry), 3)
+        phase("compare", f"nck=3 (u64 key + gidx) ncarry={ncarry} n={n} tile={r['tile']}: "
+                         f"tilesort max_abs_err {r['tilesort']}; mergepath {r['levels']} levels "
+                         f"(output tile {r['out_tile']}) max_abs_err {r['mergepath']}")
+        err = merged_err(err, r)
+    return err
+
+
+def captured_merge_planes(call) -> list:
+    """Run ``call()`` with ``merge.sort_merge_planes`` wrapped to keep a copy
+    of the planes of its first call at each (length, compare planes, planes):
+    the inputs the merge engine gets in a distributed sort, its local sorts
+    and its final sort. Returns [(planes, nck), ...]."""
+    seen = {}
+    inner = merge.sort_merge_planes
+
+    def keep(planes, nck, **kw):
+        seen.setdefault((planes[0].numel(), nck, len(planes)),
+                        ([p.clone() for p in planes], nck))
+        return inner(planes, nck, **kw)
+
+    merge.sort_merge_planes = keep
+    try:
+        call()
+    finally:
+        merge.sort_merge_planes = inner
+    torch.cuda.synchronize()
+    return list(seen.values())
+
+
+def compare_captured(call, what: str) -> dict:
+    """The merge kernels against their plain versions on the planes that
+    ``call`` gives ``merge.sort_merge_planes`` (:func:`captured_merge_planes`),
+    each sort's whole chain at its default tiles."""
+    err = {"tilesort": 0, "mergepath": 0}
+    captured = captured_merge_planes(call)
+    if not captured:
+        raise AssertionError(f"{what}: the merge engine was never called")
+    for planes, nck in captured:
+        r = compare_sort_chain(planes, nck)
+        phase("compare", f"{what}, merge engine input n={planes[0].numel()} nck={nck} planes="
+                         f"{len(planes)}: tilesort tile {r['tile']} max_abs_err {r['tilesort']}; "
+                         f"mergepath {r['levels']} levels, output tile {r['out_tile']}, "
+                         f"max_abs_err {r['mergepath']}")
+        err = merged_err(err, r)
+        del planes
+    return err
+
+
+def merge_launches(n: int, nck: int, dev) -> tuple:
+    """(tile sorts, merge levels) of one ``sort_merge_planes`` of n elements."""
+    tile = merge.default_tile(nck, dev)
+    return 1, max(0, math.ceil(math.log2(n / tile))) if n > tile else 0
+
+
+def nck3_kernel_times(dev, rng, smi: str) -> dict:
+    """The tile sort and the merge levels at one shard of the 1e8 sort
+    (1.25e7 elements) with a u64 key and one carry: two compare planes (the
+    key alone) against three (key and gidx, the distributed sort's
+    order), each at its default tile, first bitwise against their plain
+    versions (every level), then timed."""
+    n = N_MAIN // DIST_P
+    st = {"err": {"tilesort": 0, "mergepath": 0}}
+    planes = nck3_planes(dev, rng, n, 1)
+    for nck, ps in ((2, planes[:2] + planes[3:]), (3, planes)):
+        r = compare_sort_chain(ps, nck)
+        phase("compare", f"n={n} u64 key + 1 carry nck={nck}: tilesort tile {r['tile']} "
+                         f"max_abs_err {r['tilesort']}; mergepath {r['levels']} levels, output "
+                         f"tile {r['out_tile']}, max_abs_err {r['mergepath']}")
+        st["err"] = merged_err(st["err"], r)
+        tile = merge.default_tile(nck, dev)
+        cur = merge.tilesort(ps, nck, tile)
+        t_ms = time_ms(lambda: merge.tilesort(ps, nck, tile))
+        run, m_ms = tile, 0.0
+        while run < n:
+            m_ms += time_ms(lambda: merge.mergepath_level(cur, nck, run), reps=3)
+            cur, run = merge.mergepath_level(cur, nck, run), 2 * run
+        st[nck] = {"tilesort": t_ms, "mergepath": m_ms, "tile": tile}
+    phase("time", f"n={n} u64 key + 1 carry, tile sort / merge levels summed: nck=2 tile "
+                  f"{st[2]['tile']} {st[2]['tilesort']:.4f} / {st[2]['mergepath']:.4f} ms; nck=3 "
+                  f"(+gidx) tile {st[3]['tile']} {st[3]['tilesort']:.4f} / "
+                  f"{st[3]['mergepath']:.4f} ms [{smi}]")
+    return st
+
+
+def dist_steps_ms(call, reps: int = 3) -> dict:
+    """Device ms of each step of the distributed sort's body: ``reps`` calls
+    under ``torch.profiler``, after one untimed call, its trace written to
+    build/dist_trace.json. A step's time is the span on the device of its
+    ``sort_sharded/<step>`` range (the trace's GPU user annotation: from its
+    first kernel's start to its last kernel's end), summed over the call's
+    ranges of that name, mean over the calls; its "busy" time is the
+    kernels' time inside those spans. "whole" is one call by CUDA events
+    (median of ``reps``), and "idle share" is 1 - the kernels' time of one
+    call over it."""
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vkradixsort_tpu_torch.parallel.distributed import STEPS
+
+    whole = time_ms(call, reps=reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    path = pathlib.Path(__file__).resolve().parent / "build" / "dist_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
+    spans = [(e["name"].removeprefix("sort_sharded/"), e["ts"], e["ts"] + e["dur"])
+             for e in events if e.get("cat") == "gpu_user_annotation"
+             and e.get("name", "").startswith("sort_sharded/")]
+    if {name for name, _, _ in spans} != set(STEPS):
+        raise AssertionError(f"the trace has no device span for some steps: "
+                             f"{sorted({name for name, _, _ in spans})}, categories "
+                             f"{sorted({str(e.get('cat')) for e in events})}")
+    ms = {step: 0.0 for step in STEPS}
+    busy = {step: 0.0 for step in STEPS}
+    for name, a, b in spans:
+        ms[name] += (b - a) / 1e3 / reps
+        busy[name] += sum(min(k1, b) - max(k0, a) for k0, k1 in kernels
+                          if k0 < b and k1 > a) / 1e3 / reps
+    kernels_ms = sum(k1 - k0 for k0, k1 in kernels) / 1e3 / reps
+    return {"steps": ms, "busy": busy, "whole": whole, "kernels": kernels_ms,
+            "idle share": 1 - kernels_ms / whole}
+
+
+def distributed_main_path(dev, rng, smi: str) -> tuple:
+    """The distributed sort on P = 8 logical shards of the card
+    (``LocalMesh([cuda:0] * 8)``) at the bench call's size: 1e8 stable u32
+    kv, overlap_chunks 1 and 2, local engine "xla" (torch.sort) and "merge"
+    (the tile-sort and merge-path kernels), each checked exactly on the
+    device, with no overflow, balance <= 1.25, its kernel launches and peak
+    memory; on the merge runs the kernels against their plain versions on
+    the planes the run gives them; the device ms by step beside one
+    ``sort_pairs`` of the same array. Returns ({(chunks, engine): launches},
+    stats with the kernels' errors under "err")."""
+    from vkradixsort_tpu_torch.parallel.distributed import (
+        LocalMesh,
+        gather_sorted,
+        sort_sharded,
+    )
+
+    mesh = LocalMesh([dev] * DIST_P)
+    keys = random_u32(dev, N_MAIN, SEED + 50)
+    values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+    launches, st = {}, {}
+    err = {"tilesort": 0, "mergepath": 0}
+    for chunks in (1, 2):
+        for eng in ("xla", "merge"):
+            def call():
+                return sort_sharded(keys, mesh, values=values, overlap_chunks=chunks,
+                                    local_engine=eng)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            merge.tilesort.launches = merge.mergepath_level.launches = 0
+            pk, counts, overflow, pv = call()
+            torch.cuda.synchronize()
+            got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+            peak = torch.cuda.max_memory_allocated(dev)
+            c = counts.cpu().numpy()
+            balance = c.max() / c.mean()
+            if bool(overflow.any()) or balance > 1.25:
+                raise AssertionError(f"distributed sort C={chunks} {eng}: overflow "
+                                     f"{overflow.tolist()}, balance {balance:.4f}")
+            out_k, out_v = gather_sorted(pk, counts, pv)
+            check_stable_kv(keys, out_k, out_v)
+            del pk, pv, out_k, out_v
+            n_local = N_MAIN // DIST_P
+            cap = int(2.0 * n_local / (chunks * DIST_P)) + 64
+            lt, ll = merge_launches(n_local // chunks, 2, dev)
+            ft, fl = merge_launches(chunks * DIST_P * cap, 2, dev)
+            want = ({"tilesort": DIST_P * (chunks * lt + ft),
+                     "mergepath": DIST_P * (chunks * ll + fl)} if eng == "merge"
+                    else {"tilesort": 0, "mergepath": 0})
+            phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on LocalMesh([cuda:0] * "
+                           f"{DIST_P}) overlap_chunks={chunks} local_engine={eng}: exact stable "
+                           f"sort on the device, no overflow, counts {c.tolist()}, balance "
+                           f"{balance:.4f}; launches {got}, expected {want}; peak device memory "
+                           f"{peak / 1e9:.3f} GB ({before / 1e9:.3f} GB before the call)")
+            if got != want:
+                raise AssertionError(f"the distributed sort's launches {got}, expected {want}")
+            launches[(chunks, eng)] = got
+            if eng == "merge":
+                err = merged_err(err, compare_captured(
+                    call, f"sort_sharded n={N_MAIN} P={DIST_P} C={chunks}"))
+            steps = dist_steps_ms(call)
+            st[(chunks, eng)] = {"steps": steps, "balance": float(balance), "peak_gb": peak / 1e9}
+            phase("time", f"sort_sharded n={N_MAIN} P={DIST_P} C={chunks} {eng}, device ms by "
+                          "step, span (kernels), profiler, mean of 3: " + ", ".join(
+                              f"{k} {v:.3f} ({steps['busy'][k]:.3f})"
+                              for k, v in steps["steps"].items())
+                  + f"; whole {steps['whole']:.3f} (CUDA events, median of 3), kernels "
+                    f"{steps['kernels']:.3f}, device idle share {steps['idle share']:.4f} [{smi}]")
+    st["sort_pairs"] = time_ms(lambda: vt.sort_pairs(keys, values), reps=3)
+    phase("time", f"sort_pairs n={N_MAIN} stable u32 kv on one card (default route "
+                  f"{route_for('kv', N_MAIN)}): {st['sort_pairs']:.3f} ms, beside the distributed "
+                  f"sort above [{smi}]")
+    st["err"] = err
+    return launches, st
+
+
+def distributed_small_paths(dev, rng, smi: str) -> dict:
+    """``dryrun_multichip(8)`` on the card (f32 keys, two payloads, about
+    1e6, C = 1 and 2), then u64 Zipf kv at 1e7 through ``sort_distributed``
+    with the merge engine (three compare planes), bitwise against numpy, and
+    the kernels against their plain versions on the planes that run gives
+    them. Returns its launches and the kernels' errors."""
+    from vkradixsort_tpu_torch.entry import dryrun_multichip
+    from vkradixsort_tpu_torch.parallel.distributed import LocalMesh, sort_distributed
+    from vkradixsort_tpu_torch.utils.fixtures import make_keys
+
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_P, device=dev)
+    phase("slice", f"dryrun_multichip({DIST_P}) on {dev}: exact, "
+                   f"{time.perf_counter() - t0:.2f} s of host")
+    keys = make_keys(rng, N_DIST_U64, np.uint64, "zipf")
+    vals = np.arange(N_DIST_U64, dtype=np.int32)
+    mesh = LocalMesh([dev] * DIST_P)
+    keys_d = torch.from_numpy(keys).to(dev)
+    vals_d = torch.from_numpy(vals).to(dev)
+
+    def call():
+        return sort_distributed(keys_d, mesh, values=vals_d, local_engine="merge", slack=4.0,
+                                oversample=64)
+
+    torch.cuda.synchronize()
+    merge.tilesort.launches = merge.mergepath_level.launches = 0
+    got_k, got_v = call()
+    torch.cuda.synchronize()
+    got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+    check_numpy_kv(keys, vals, got_k, got_v, "distributed u64 zipf kv on the merge engine")
+    phase("slice", f"sort_distributed n={N_DIST_U64} u64 zipf kv, local_engine=merge (nck=3): "
+                   f"bitwise equal to numpy's stable argsort; launches {got}")
+    if not got["tilesort"] or not got["mergepath"]:
+        raise AssertionError(f"the u64 merge run did not launch the kernels: {got}")
+    return {"launches": got,
+            "err": compare_captured(call, f"sort_distributed n={N_DIST_U64} u64 zipf kv")}
+
+
+def nccl_world_one(dev, smi: str) -> dict:
+    """``GroupMesh`` on NCCL at world size 1 (the machine has one card): the
+    1e8 stable u32 kv sort, exact on the device, through
+    ``init_process_group("nccl", world_size=1)`` with a file store under
+    build/, then the group destroyed."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    from vkradixsort_tpu_torch.parallel.distributed import GroupMesh, gather_sorted, sort_sharded
+
+    store = pathlib.Path(__file__).resolve().parent / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = GroupMesh(device=dev)
+        keys = random_u32(dev, N_MAIN, SEED + 51)
+        values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+        pk, counts, overflow, pv = sort_sharded(keys, mesh, values=values)
+        if bool(overflow.any()):
+            raise AssertionError("NCCL world-size-1 sort overflowed")
+        out_k, out_v = gather_sorted(pk, counts, pv, mesh=mesh)
+        check_stable_kv(keys, out_k, out_v)
+        del pk, pv, out_k, out_v
+        ms = time_ms(lambda: sort_sharded(keys, mesh, values=values), reps=3)
+        phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on GroupMesh (NCCL, world size "
+                       f"1): exact stable sort on the device; {ms:.3f} ms [{smi}]")
+    finally:
+        dist.destroy_process_group()
+    return {"ms": ms}
+
+
+def dist_local_crossovers(dev, smi: str) -> dict:
+    """The distributed sort's local composite sort, (key, gidx) with one
+    int32 payload, through "xla" (torch.sort) and "merge" at 2^16 to 2^24
+    per shard, u32 and u64 keys, in turns (xla, merge, merge, xla), results
+    bitwise equal. Behind ROUTE_TABLE["dist_local"] / ["dist_local64"]."""
+    from vkradixsort_tpu_torch.parallel.distributed import _idx_sort, _idx_sort_merge
+
+    out = {}
+    for wide in (False, True):
+        for n in DIST_LOCAL_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 60 + n)
+            dt = torch.int64 if wide else torch.int32
+            info = torch.iinfo(dt)
+            k = torch.randint(info.min, info.max, (n,), dtype=dt, device=dev, generator=gen)
+            g = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+            v = [torch.arange(n, dtype=torch.int32, device=dev)]
+            fns = {"xla": lambda: _idx_sort(k, g, v), "merge": lambda: _idx_sort_merge(k, g, v)}
+            a, b = fns["xla"](), fns["merge"]()
+            if not all(torch.equal(x, y) for x, y in zip([a[0], a[1]] + a[2],
+                                                           [b[0], b[1]] + b[2])):
+                raise AssertionError(f"the local sorts disagree at n={n} wide={wide}")
+            t = {"xla": [], "merge": []}
+            for name in ("xla", "merge", "merge", "xla"):
+                t[name].append(time_ms(fns[name]))
+            out[(wide, n)] = t
+            best = "merge" if max(t["merge"]) < min(t["xla"]) else "xla"
+            routed = route_for("dist_local", n, wide=wide)
+            phase("time", f"dist_local crossover {'u64' if wide else 'u32'} keys + gidx + 1 "
+                          f"payload n={n}: xla {' / '.join(f'{x:.4f}' for x in t['xla'])}, merge "
+                          f"{' / '.join(f'{x:.4f}' for x in t['merge'])} ms; merge faster in both "
+                          f"turns: {best == 'merge'}; the table routes "
+                          f"{'merge' if routed == 'merge' else 'xla'} [{smi}]")
     return out
 
 
@@ -1122,6 +1515,8 @@ def main() -> None:
                      f"max_abs_err {err['mergepath']}")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {err}")
+    err3 = compare_nck3(dev, rng)
+    err = {k: max(v, err3[k]) for k, v in err.items()}
     err.update(compare_radix_kernels(dev, rng))
 
     # --- 4. the merge path through the public API
@@ -1177,6 +1572,14 @@ def main() -> None:
     # --- 10. the crossovers behind the route table
     crossovers(dev, smi)
 
+    # --- 11. the distributed sort on 8 logical shards of the card
+    dist_launches, dst = distributed_main_path(dev, rng, smi)
+    dsm = distributed_small_paths(dev, rng, smi)
+    nccl_world_one(dev, smi)
+    n3 = nck3_kernel_times(dev, rng, smi)
+    err = merged_err(err, dst["err"], dsm["err"], n3["err"])
+    dist_local_crossovers(dev, smi)
+
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
     # keys and values read and written, the base table read; 4 passes
@@ -1187,12 +1590,16 @@ def main() -> None:
          "replaces": "vkradixsort_tpu/ops/merge.py:311", "launches": launches["tilesort"],
          "max_abs_err": err["tilesort"], "ms": ms["tilesort"], "plain_ms": plain_ms["tilesort"],
          "bound_ms": bound_ms(16 * N_MAIN), "bound_by": "bytes",
-         "library_ms": merge_library_ms["tilesort"]},
+         "library_ms": merge_library_ms["tilesort"],
+         "dist_launches": dist_launches[(1, "merge")]["tilesort"],
+         "shard_ms_nck2_nck3": [n3[2]["tilesort"], n3[3]["tilesort"]]},
         {"name": "mergepath", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/mergepath.cu",
          "replaces": "vkradixsort_tpu/ops/merge.py:655", "launches": launches["mergepath"],
          "max_abs_err": err["mergepath"], "ms": ms["mergepath"],
          "plain_ms": plain_ms["mergepath"], "bound_ms": bound_ms(16 * N_MAIN * nlevels),
-         "bound_by": "bytes", "library_ms": merge_library_ms["mergepath"]},
+         "bound_by": "bytes", "library_ms": merge_library_ms["mergepath"],
+         "dist_launches": dist_launches[(1, "merge")]["mergepath"],
+         "shard_ms_nck2_nck3": [n3[2]["mergepath"], n3[3]["mergepath"]]},
         {"name": "histogram", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/histogram.cu",
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],
          "max_abs_err": err["histogram"], "ms": rst["histogram"],

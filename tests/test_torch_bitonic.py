@@ -28,6 +28,8 @@ from vkradixsort_tpu.ops import bitonic as jbitonic
 from vkradixsort_tpu_torch.ops import bitonic, common
 
 import vkradixsort_tpu_torch as vt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 JCFG = vk.SortConfig(interpret=True)
 SIZES = [100, 1024, 5000, 16384]

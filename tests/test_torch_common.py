@@ -13,6 +13,8 @@ import torch
 import vkradixsort_tpu as vk
 from vkradixsort_tpu.ops import common as jcommon
 from vkradixsort_tpu_torch.ops import common, segsort, tiled
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 N = 4096
 # (name, numpy bit dtype of the same width) — bf16 has no numpy dtype, so

@@ -29,7 +29,7 @@ from vkradixsort_tpu_torch.ops import (
 
 pytestmark = pytest.mark.cuda
 
-COMBOS = [(1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2)]  # (nck, ncarry)
+COMBOS = [(1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2), (3, 0), (3, 1), (3, 2)]  # (nck, ncarry)
 
 
 @pytest.fixture
@@ -77,6 +77,10 @@ def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
     rng = np.random.default_rng(n + 10 * nck + ncarry)
     planes = _planes(rng, n, nck, ncarry, dev)
     before = merge.tilesort.launches
+    if merge.tilesort_smem(nck, tile) > merge.smem_limits(dev)[0]:  # 16384 at three planes
+        with pytest.raises(ValueError, match="shared memory"):
+            merge.tilesort(planes, nck, tile)
+        return
     got = merge.tilesort(planes, nck, tile)
     assert merge.tilesort.launches == before + 1
     _equal(got, merge.tilesort_plain(planes, nck, tile))
@@ -247,12 +251,12 @@ def test_gpu_context(dev):
     assert info.sm_count > 0 and info.l2_bytes > 0
     assert info.smem_per_block_optin >= 48 * 1024
     assert info.smem_per_sm >= info.smem_per_block_optin
-    for nck in (1, 2):
+    for nck in (1, 2, 3):
         tile = merge.default_tile(nck, dev)
         assert merge.tilesort_smem(nck, tile) <= info.smem_per_block_optin
-        assert tile == merge.TILESORT_MAX_TILE or (
+        assert tile == merge.tilesort_max_tile(nck) or (
             merge.tilesort_smem(nck, 2 * tile) > info.smem_per_block_optin)
-        for nplanes in (1, 2, 3, 4):
+        for nplanes in (1, 2, 3, 4, 5):
             tile = merge.MERGE_TILES[nplanes]
             assert merge.mergepath_smem(nplanes, tile) <= info.smem_per_block_optin
 
@@ -592,3 +596,29 @@ def test_fused_kernel_refuses_more_than_it_holds(dev):
     keys = torch.zeros(fused.MAX_N + 1, dtype=torch.uint32, device=dev)
     with pytest.raises(ValueError, match="fused kernel takes"):
         fused.sort_fused(keys, config=vt.SortConfig(fused_max_n=fused.MAX_N + 1))
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("engine", ["xla", "merge"])
+@pytest.mark.parametrize("kdt", [np.uint32, np.uint64])
+def test_local_mesh_on_the_card_equals_the_cpu(dev, chunks, engine, kdt):
+    # the distributed sort over 4 logical shards of the card against the
+    # same over 4 of the CPU (plain versions there): every padded shard,
+    # count and flag bitwise alike; ties, sentinel-valued keys, two payloads
+    from vkradixsort_tpu_torch.parallel.distributed import LocalMesh, sort_sharded
+
+    rng = np.random.default_rng(chunks * 10 + (kdt == np.uint64))
+    n = 4 * 50_001
+    keys = (rng.zipf(1.3, size=n) % 1000).astype(kdt)
+    keys[::9] = np.iinfo(kdt).max
+    vals = (np.arange(n, dtype=np.int32), rng.standard_normal(n).astype(np.float32))
+    out = []
+    for d in ("cpu", dev):
+        res = sort_sharded(torch.from_numpy(keys).to(d), LocalMesh([d] * 4),
+                           values=tuple(torch.from_numpy(v).to(d) for v in vals),
+                           overlap_chunks=chunks, local_engine=engine)
+        out.append(list(res[0]) + [res[1], res[2]] + [s for p in res[3] for s in p])
+    torch.cuda.synchronize()
+    assert not bool(out[1][5].any())
+    for a, b in zip(*out):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu())

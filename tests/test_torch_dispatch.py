@@ -14,6 +14,8 @@ import torch
 
 import vkradixsort_tpu as vk
 import vkradixsort_tpu_torch as vt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 CFG = vt.SortConfig(tile=4096)  # small tiles: several merge levels at test sizes
 N = 3 * 4096 + 555

@@ -17,6 +17,8 @@ import vkradixsort_tpu as vk
 from vkradixsort_tpu.ops import merge as jmerge
 import vkradixsort_tpu_torch as vt
 from vkradixsort_tpu_torch.ops import merge
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 T = 4096  # the JAX engine's tile at tile_rows=2, and the port's tile here
 I32_MAX = np.iinfo(np.int32).max
@@ -233,21 +235,27 @@ def test_plain_kernels_compose_to_stable_sort(rng):
 
 def test_default_tile_from_shared_memory():
     # the largest power of two whose slots (8 bytes an element for one key
-    # plane, 10 for two) and digit counters (1 KB per warp of 16 x 32
-    # elements) fit one block's 232,448 B on the H100, within 1024 threads
+    # plane, 10 for two, 14 for three) and digit counters (1 KB per warp of
+    # 16 x 32 elements) fit one block's 232,448 B on the H100, within 1024
+    # threads (512 at three key planes)
     cpu = torch.device("cpu")
     assert merge.default_tile(1, cpu) == 16384
     assert merge.default_tile(2, cpu) == 16384
+    assert merge.default_tile(3, cpu) == 8192
     assert merge.tilesort_smem(1, 8192) == 80 * 1024
     assert merge.tilesort_smem(1, 16384) == 160 * 1024
     assert merge.tilesort_smem(2, 16384) == 192 * 1024
+    assert merge.tilesort_smem(3, 8192) == 128 * 1024
+    assert merge.tilesort_smem(3, 16384) > merge.H100_SMEM_PER_BLOCK_OPTIN
     assert merge.tilesort_smem(1, 64) == 512 + 8 * 1024  # 256 threads at least
-    for nck in (1, 2):
-        assert merge.tilesort_smem(nck, 16384) <= merge.H100_SMEM_PER_BLOCK_OPTIN
-        assert 2 * 16384 > merge.TILESORT_MAX_TILE
+    for nck in (1, 2, 3):
+        tile = merge.default_tile(nck, cpu)
+        assert merge.tilesort_smem(nck, tile) <= merge.H100_SMEM_PER_BLOCK_OPTIN
+        assert 2 * tile > merge.tilesort_max_tile(nck) or (
+            merge.tilesort_smem(nck, 2 * tile) > merge.H100_SMEM_PER_BLOCK_OPTIN)
     # the merge kernel's output tile for each plane count: two staged tiles
     # of every plane fit one block
-    for nplanes in (1, 2, 3, 4):
+    for nplanes in (1, 2, 3, 4, 5):
         tile = merge.MERGE_TILES[nplanes]
         assert merge.mergepath_smem(nplanes, tile) <= merge.H100_SMEM_PER_BLOCK_OPTIN
 

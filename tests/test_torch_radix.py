@@ -30,6 +30,8 @@ from vkradixsort_tpu.ops import histogram as jhistogram
 from vkradixsort_tpu.ops import radix_tiled as jradix_tiled
 from vkradixsort_tpu.ops import reference as jreference
 from vkradixsort_tpu_torch.ops import common, fused, histogram, radix_tiled, reference
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 JCFG = vk.SortConfig(interpret=True)
 TILE = 2048

@@ -24,6 +24,8 @@ from vkradixsort_tpu.utils.fixtures import make_keys
 from vkradixsort_tpu_torch.ops import common, samplesort
 
 import vkradixsort_tpu_torch as vt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 SMALL = dict(tile_target=1 << 16, bucket_target=1 << 15)
 N = 70_001

@@ -8,12 +8,16 @@ It imports ``torch`` and never ``jax``. Public API, as in the JAX package:
     argsort(keys)               -> stable argsort indices
     sort_segments(keys_2d)      -> every row sorted
 
-The stable key-value sort of large inputs on a CUDA tensor runs the merge
-engine's hand-written kernels (``csrc/``), built with ``nvcc`` at first use;
-``backend="radix_tiled"`` and ``backend="fused"`` run the radix engines'
-kernels, ``backend="bitonic"`` the bitonic network's kernels,
+On a CUDA tensor the default route (``engine/config.ROUTE_TABLE``) sends
+stable 32-bit keys, alone or with one 4-byte payload, above 2^23 elements to
+the radix_tiled engine's hand-written kernels (``csrc/``, built with
+``nvcc`` at first use) and everything else to ``torch.sort``.
+``backend="merge"`` runs the merge engine's tile-sort and merge-path
+kernels, ``backend="fused"`` the one-launch radix kernel,
+``backend="bitonic"`` the bitonic network's kernels,
 ``backend="samplesort"`` the sample sort with its run-placement kernel, and
-``backend="reference"`` the plain radix sort.
+``backend="reference"`` the plain radix sort. The distributed sort is in
+``vkradixsort_tpu_torch.parallel.distributed``.
 """
 
 from vkradixsort_tpu_torch.engine.config import SortConfig

@@ -149,10 +149,12 @@ __device__ __forceinline__ int stage_window(int* dst, const int* src, int len,
 // A[i] <= B[j] lexicographically on the compare planes, in device memory.
 template <int NCK>
 __device__ __forceinline__ bool le_global(const Planes& P, long long i, long long j) {
-  const int a = P.in[0][i], b = P.in[0][j];
-  if (NCK == 1) return a <= b;
-  if (a != b) return a < b;
-  return P.in[1][i] <= P.in[1][j];
+#pragma unroll
+  for (int q = 0; q + 1 < NCK; ++q) {
+    const int a = P.in[q][i], b = P.in[q][j];
+    if (a != b) return a < b;
+  }
+  return P.in[NCK - 1][i] <= P.in[NCK - 1][j];
 }
 
 // Co-rank of diagonal d of the run pair whose A run starts at a0 and B run
@@ -186,9 +188,11 @@ struct StagedKeys {
   const int* a[NCK];
   const int* b[NCK];
   __device__ __forceinline__ bool le(int i, int j) const {  // A[i] <= B[j]
-    const int x = a[0][i], y = b[0][j];
-    if (NCK == 1) return x <= y;
-    if (x != y) return x < y;
+#pragma unroll
+    for (int q = 0; q + 1 < NCK; ++q) {
+      const int x = a[q][i], y = b[q][j];
+      if (x != y) return x < y;
+    }
     return a[NCK - 1][i] <= b[NCK - 1][j];
   }
 };

@@ -1,15 +1,15 @@
 // Plane bundle shared by the merge engine's kernels (tilesort.cu,
-// mergepath.cu). An element is up to four int32 planes: NCK compare planes
+// mergepath.cu). An element is up to five int32 planes: NCK compare planes
 // (keys in signed order, compared lexicographically), then NCARRY carry
 // planes that move with their key. Each kernel is instantiated for
-// NCK in {1, 2} and NCARRY in {0, 1, 2}.
+// NCK in {1, 2, 3} and NCARRY in {0, 1, 2}.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace vkrs {
 
-constexpr int kMaxPlanes = 4;
+constexpr int kMaxPlanes = 5;
 
 struct Planes {
   const int* in[kMaxPlanes];
@@ -35,6 +35,9 @@ inline Planes make_planes(void* const* in, void* const* out, int nplanes) {
     case 20: return static_cast<int>(LAUNCH<2, 0>(__VA_ARGS__));        \
     case 21: return static_cast<int>(LAUNCH<2, 1>(__VA_ARGS__));        \
     case 22: return static_cast<int>(LAUNCH<2, 2>(__VA_ARGS__));        \
+    case 30: return static_cast<int>(LAUNCH<3, 0>(__VA_ARGS__));        \
+    case 31: return static_cast<int>(LAUNCH<3, 1>(__VA_ARGS__));        \
+    case 32: return static_cast<int>(LAUNCH<3, 2>(__VA_ARGS__));        \
     default: return static_cast<int>(cudaErrorInvalidValue);            \
   }
 

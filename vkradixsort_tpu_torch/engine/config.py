@@ -71,9 +71,22 @@ DEFAULT_CONFIG = SortConfig()
 #     and lost in two whose host was slower, so it has no row.
 #   - kv2: torch.sort at every size from 2^18 (1e8: 12.68 against merge's
 #     18.98 ms); radix_tiled takes one payload.
+#   - dist_local: the distributed sort's shard-local sort of (u32 key,
+#     gidx) with one payload, by the size of a shard's chunk
+#     (parallel/distributed._pick_local_engine; "tiled" there means
+#     torch.sort), at 2^16, 2^18, ..., 2^24 in three runs (chip_smoke.py
+#     phase 11): merge from 2^22, the least measured size where it won both
+#     turns of every run (2^22: 0.70 against 0.90 ms; 2^24: 2.89 against
+#     3.92). Below, it won at 2^16 and 2^18 but lost a turn at 2^20 in the
+#     two runs whose small calls were slower; sizes between 2^20 and 2^22
+#     were not measured and stay on torch.sort. The final sort of what a
+#     shard received runs on the engine this row picks for the local sort.
+#     dist_local64 (u64 keys, three compare planes) has no row: merge won
+#     every run at 2^24 only.
 ROUTE_TABLE: dict = {
     "keys": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "kv": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
+    "dist_local": [((1 << 22) - 1, "tiled"), (float("inf"), "merge")],
 }
 
 

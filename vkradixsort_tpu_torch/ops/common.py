@@ -184,15 +184,16 @@ def _order_view(x: torch.Tensor) -> torch.Tensor:
 
 def composite_searchsorted(k_sorted, g_sorted, qk, qg) -> torch.Tensor:
     """Count of pairs (k, g) lexicographically < (qk, qg), vectorized over
-    the queries; int32. ``(k_sorted, g_sorted)`` (``g`` int32) must be
+    the queries; int32. ``(k_sorted, g_sorted)`` (``g`` int32 or int64) must be
     lexicographically sorted along the last dimension; leading dimensions
-    batch (queries broadcast over them). Keys of up to 4 bytes pack with
-    ``g`` into one int64 and take one ``torch.searchsorted``; 8-byte keys
-    take the bisection loop of the JAX package, in O(|q| log n)."""
+    batch (queries broadcast over them). Keys of up to 4 bytes with an int32
+    ``g`` pack into one int64 and take one ``torch.searchsorted``; 8-byte
+    keys or an int64 ``g`` take the bisection loop of the JAX package, in
+    O(|q| log n)."""
     k_s, q_s = _order_view(k_sorted), _order_view(qk)
     qg = qg.expand(*k_s.shape[:-1], qg.shape[-1]).contiguous()
     q_s = q_s.expand(qg.shape).contiguous()
-    if k_s.element_size() <= 4:
+    if k_s.element_size() <= 4 and g_sorted.dtype == torch.int32:
         def pack(k, g):
             return (k.to(torch.int64) << 32) | (g.to(torch.int64) - _MIN32)
 

@@ -26,6 +26,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VOIDP4 = ctypes.c_void_p * 4
+_VOIDP5 = ctypes.c_void_p * 5  # a plane bundle of the merge kernels (csrc/planes.cuh)
 _U64X4 = ctypes.c_ulonglong * 4
 
 
@@ -90,7 +91,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ints = ctypes.POINTER(ctypes.c_int)
-    planes = [_VOIDP4, _VOIDP4, i32, i32, i64]
+    planes = [_VOIDP5, _VOIDP5, i32, i32, i64]
     # the arguments between the device (first) and the stream (last)
     signatures = {
         "tilesort": planes + [i32],
@@ -141,14 +142,15 @@ def u64s(values: list):
 def launch(name: str, ins: list, outs: list, nck: int, *scalars) -> None:
     """Launch the merge engine's ``vkrs_<name>`` on plane bundles.
 
-    ``ins``/``outs`` are equal-length lists of contiguous CUDA int32 tensors
-    on one device (the caller checks that), compare planes first; the
-    kernel's scalars follow the plane counts. Raises if the launch fails."""
+    ``ins``/``outs`` are equal-length lists of up to five contiguous CUDA
+    int32 tensors on one device (the caller checks that), compare planes
+    first; the kernel's scalars follow the plane counts. Raises if the
+    launch fails."""
     call(
         name,
         ins[0].device,
-        pointers(ins),
-        pointers(outs),
+        _VOIDP5(*(t.data_ptr() for t in ins)),
+        _VOIDP5(*(t.data_ptr() for t in outs)),
         nck,
         len(ins) - nck,
         *scalars,

@@ -11,7 +11,8 @@ Port of ``vkradixsort_tpu/ops/merge.py`` (``sort_merge`` and
      ``csrc/mergepath.cu``), reading one buffer and writing the other.
 
 Everything runs on PLANES of int32: the first ``nck`` planes are the key in
-signed order (one plane for 32-bit keys, (hi, lo) for 64-bit keys) and
+signed order (one plane for 32-bit keys, (hi, lo) for 64-bit keys, and a
+third for a tie-break such as the distributed sort's global position) and
 compare lexicographically; the rest are carried payload. Both kernels
 break ties by input order (in-tile position; A before B in a merge), so
 the sort is stable without a position plane through device memory, and
@@ -44,10 +45,12 @@ SMEM_RESERVED_PER_BLOCK = 1024
 MAX_KERNEL_CARRY = 2  # carry planes the kernels are instantiated for
 
 # The tile-sort kernel (csrc/tilesort.cu): TILESORT_PER_THREAD elements a
-# thread, at least 256 threads (one per digit in its scan), at most 1024.
+# thread, at least 256 threads (one per digit in its scan), at most
+# TILESORT_MAX_THREADS[nck]; a slot of TILESORT_SLOT_BYTES[nck] an element.
 TILESORT_PER_THREAD = 16
 TILESORT_MIN_THREADS = 256
-TILESORT_MAX_TILE = TILESORT_PER_THREAD * 1024
+TILESORT_MAX_THREADS = {1: 1024, 2: 1024, 3: 512}
+TILESORT_SLOT_BYTES = {1: 8, 2: 10, 3: 14}
 
 # The merge-path kernel (csrc/mergepath.cu): output tiles of MERGE_TILES[p]
 # elements for p planes (keys and carries), two staged tiles in shared
@@ -58,8 +61,9 @@ TILESORT_MAX_TILE = TILESORT_PER_THREAD * 1024
 # fastest tile of the H100 sweep of a 1e8 sort's merge levels (PERF.md): 1
 # plane 4096 (2048 and 8192 12-23% slower), 2 planes 8192 (0.3-0.7% faster
 # than 4096), 3 planes 2048 (7% faster than 4096), 4 planes 4096 (1.3-1.6%
-# faster than 2048).
-MERGE_TILES = {1: 4096, 2: 8192, 3: 2048, 4: 4096}
+# faster than 2048), 5 planes (three compare planes, two carries) 4096
+# (1.3% faster than 2048).
+MERGE_TILES = {1: 4096, 2: 8192, 3: 2048, 4: 4096, 5: 4096}
 MERGE_STAGES = 2
 MERGE_SLACK = 16  # ints a staged plane holds past its tile
 MERGE_HEADER = 256  # bytes of barriers and tile records
@@ -67,10 +71,15 @@ MERGE_HEADER = 256  # bytes of barriers and tile records
 
 def tilesort_smem(nck: int, tile: int) -> int:
     """Bytes of shared memory one tile-sort block takes: a slot per element
-    (key and position, 8 bytes for one key plane, 10 for two) and a row of
-    256 digit counters (1 KB) per warp."""
+    (key and position, 8 bytes for one key plane, 10 for two, 14 for three)
+    and a row of 256 digit counters (1 KB) per warp."""
     threads = max(tile // TILESORT_PER_THREAD, TILESORT_MIN_THREADS)
-    return (8 if nck == 1 else 10) * tile + threads // 32 * 1024
+    return TILESORT_SLOT_BYTES[nck] * tile + threads // 32 * 1024
+
+
+def tilesort_max_tile(nck: int) -> int:
+    """The largest tile one tile-sort block takes at ``nck`` key planes."""
+    return TILESORT_PER_THREAD * TILESORT_MAX_THREADS[nck]
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,13 +95,14 @@ def smem_limits(device: torch.device) -> tuple:
 def default_tile(nck: int, device: torch.device) -> int:
     """The tile sort's default tile: the largest power of two whose slots
     and counters (:func:`tilesort_smem`) fit the shared memory one block
-    may opt into, within the kernel's 1024 threads: 16384 on an H100 (160 KB
-    for one key plane, 192 KB for two; one 1024-thread block an SM). In the
+    may opt into, within the kernel's threads: 16384 on an H100 (160 KB
+    for one key plane, 192 KB for two; one 1024-thread block an SM), 8192
+    for three (128 KB; 16384 would take 256). In the
     H100 sweep (PERF.md) 8192 sorted its tiles faster, two blocks an SM,
     but 16384 made the whole sort faster: it takes one merge level off the
     ladder. The stable result does not depend on the tile."""
     optin, _ = smem_limits(device)
-    tile = TILESORT_MAX_TILE  # 1024 threads
+    tile = tilesort_max_tile(nck)
     while tilesort_smem(nck, tile) > optin:
         tile //= 2
     return tile
@@ -105,8 +115,8 @@ def mergepath_smem(nplanes: int, tile: int) -> int:
 
 
 def _check_planes(planes: list, nck: int) -> None:
-    if nck not in (1, 2) or len(planes) < nck:
-        raise ValueError(f"need 1 or 2 compare planes, got nck={nck} of {len(planes)}")
+    if nck not in (1, 2, 3) or len(planes) < nck:
+        raise ValueError(f"need 1, 2 or 3 compare planes, got nck={nck} of {len(planes)}")
     p0 = planes[0]
     for p in planes:
         if p.dtype != torch.int32 or p.dim() != 1 or p.shape != p0.shape:
@@ -133,10 +143,22 @@ def _check_pow2(name: str, x: int) -> None:
 
 def _lex_key(planes: list, nck: int) -> torch.Tensor:
     """One tensor whose order is the lexicographic order of the compare
-    planes: the plane itself, or (hi << 32) + (lo + 2^31) in int64."""
+    planes, equal where the keys are equal: the plane itself, (hi << 32) +
+    (lo + 2^31) in int64, or for three planes each key's dense rank among
+    the keys (found by two stable sorts, low plane first)."""
     if nck == 1:
         return planes[0]
-    return (planes[0].to(torch.int64) << 32) + (planes[1].to(torch.int64) - _MIN32)
+    pair = (planes[0].to(torch.int64) << 32) + (planes[1].to(torch.int64) - _MIN32)
+    if nck == 2:
+        return pair
+    _, order = torch.sort(planes[2], stable=True)
+    order = order[torch.sort(pair[order], stable=True)[1]]
+    hi, lo = pair[order], planes[2][order]
+    new = torch.ones_like(hi, dtype=torch.bool)
+    new[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    rank = torch.empty_like(hi)
+    rank[order] = torch.cumsum(new, 0) - 1
+    return rank
 
 
 def _padded(key: torch.Tensor, length: int) -> torch.Tensor:
