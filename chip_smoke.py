@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase; the JSON lines last
+    python3 chip_smoke.py --routes   # the route measurements alone
 
 Drives the port's main paths through the public entry points, in phases,
 one line each: the stable u32 key-value sort
@@ -9,7 +10,8 @@ and on ``backend="radix_tiled"`` (one of them the default route at 1e8,
 ``engine/config.ROUTE_TABLE``), the one-launch ``backend="fused"`` sort of
 a small array, ``backend="bitonic"`` and ``backend="samplesort"``, and the
 distributed sort ``parallel.distributed.sort_sharded`` over 8 logical
-shards of the card and over NCCL.
+shards of the card and over NCCL, and the dispatcher's other paths
+(u64 Zipf kv, argsort, ``stable=False`` kv) on their default routes.
 
   1. probe the card (``nvidia-smi`` name and power limit);
   2. build the kernels from the sources in this checkout;
@@ -76,7 +78,12 @@ shards of the card and over NCCL.
      payload and u32 keys alone through ``torch.sort`` (tiled), merge and
      radix_tiled, and kv with two 4-byte payloads through tiled and merge,
      at 2^16 to 2^26 and 1e8, in turns in this one process, each beside the
-     engine the table picks;
+     engine the table picks; then the dispatcher's other operations the same
+     way through tiled, merge and radix_tiled: u32 argsort, ``stable=False``
+     u32 kv (beside the JAX package's packed sort, ``sort_packed_u32``), and
+     on u64 keys, full-width uniform and Zipf (BASELINE.json config 4), keys
+     alone, kv with one 4-byte payload (beside the former two-pass chain,
+     ``sort_flat_u64_chain``) and argsort;
  11. the distributed sort: ``sort_sharded`` over ``LocalMesh([cuda:0] *
      8)`` at 1e8 stable u32 kv, overlap_chunks 1 and 2, local engine "xla"
      and "merge", each exact on the device with no overflow, balance <=
@@ -93,10 +100,22 @@ shards of the card and over NCCL.
      compare planes on one 1.25e7 shard, bitwise against their plain
      versions and timed; and
      the crossovers behind ``ROUTE_TABLE["dist_local"]``: the local (key,
-     gidx) sort with one payload through "xla" and "merge", 2^16 to 2^24,
-     u32 and u64 keys, in turns.
+     gidx) sort with one payload through "xla" and "merge", 2^16 to 2^24
+     (u32 keys) and 2^26 (u64 keys), in turns;
+ 12. the dispatcher's other paths at 1e8 through the public entry points on
+     their default routes, each exact on the device with its kernel
+     launches counted and timed beside ``torch.sort``: stable kv of u64 Zipf
+     keys (BASELINE.json config 4 at the bench size), argsort of u32 and of
+     u64 Zipf keys, ``stable=False`` u32 kv; then each of the 8 passes of a
+     radix_tiled sort of the u64 Zipf keys, and of uniform u64 keys, on the
+     sort's own intermediate keys: the histogram and rank-and-scatter
+     kernels bitwise against their plain versions, timed beside their
+     bounds, with the share of the pass's most common digit.
 
-Any failure raises and exits non-zero. The second-to-last line is a JSON
+With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
+(``route_crossovers`` of phase 10, ``dist_local_crossovers`` of phase 11,
+``radix_passes_u64`` of phase 12), for repeated runs, and prints no JSON
+line. Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
 error against its plain version, its time, its plain version's time, the
 least time the card could take (``bound_ms``: the larger of the bytes moved
@@ -107,8 +126,10 @@ entries also carry their launches in the distributed sort's C = 1 merge
 run, and their ms at two and three compare planes on one shard); the
 bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
-PERF.md, as text. The last is the run's JSON result. Without a CUDA device, or without the package beside
-it, it exits non-zero and prints no result.
+PERF.md, as text; the histogram and radix_dest entries add their 8 passes'
+ms on the 1e8 u64 Zipf sort with its bound, and on uniform u64 keys. The
+last is the run's JSON result. Without a CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -117,6 +138,7 @@ import json
 import math
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -142,6 +164,7 @@ from vkradixsort_tpu_torch.ops.common import (
     cdiv,
     extract_digit,
 )
+from vkradixsort_tpu_torch.utils.fixtures import make_keys
 from vkradixsort_tpu_torch.utils.timing import measure_seconds_per_call
 
 SEED = 0xBE7C
@@ -218,14 +241,17 @@ def random_u32(dev, n: int, seed: int) -> torch.Tensor:
                          generator=gen).view(torch.uint32)
 
 
-def check_stable_kv(keys_in: torch.Tensor, keys_out: torch.Tensor, vals_out: torch.Tensor) -> None:
-    """Exact check of a stable sort of (keys_in, arange) on the device: keys
-    non-decreasing, values a permutation of arange that maps keys_in onto
-    keys_out, and values increasing within every run of equal keys. Together
-    these admit exactly one answer, the stable sort."""
+def check_kv(keys_in: torch.Tensor, keys_out: torch.Tensor, vals_out: torch.Tensor,
+             stable: bool = True) -> None:
+    """Exact check of a sort of (keys_in, arange) on the device, u32 or u64
+    keys, in their signed-order view: keys non-decreasing, values a
+    permutation of arange that maps keys_in onto keys_out, and, when
+    ``stable``, values increasing within every run of equal keys. Together
+    these admit exactly one answer, the stable sort; without the last, every
+    valid unstable answer."""
     n = keys_in.numel()
-    k = keys_out.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    v = vals_out.view(torch.int32).to(torch.int64)
+    k = segsort.to_signed_order(keys_out)
+    v = bits_view(vals_out).to(torch.int64)
     if not bool((k[1:] >= k[:-1]).all()):
         raise AssertionError("output keys are not non-decreasing")
     if not bool(((v >= 0) & (v < n)).all()):
@@ -234,10 +260,10 @@ def check_stable_kv(keys_in: torch.Tensor, keys_out: torch.Tensor, vals_out: tor
     seen[v] = True
     if not bool(seen.all()):
         raise AssertionError("output values are not a permutation of arange")
-    if not torch.equal(keys_in.view(torch.int32)[v], keys_out.view(torch.int32)):
+    if not torch.equal(bits_view(keys_in)[v], bits_view(keys_out)):
         raise AssertionError("keys_in[values_out] != keys_out")
     tie = k[1:] == k[:-1]
-    if not bool((v[1:] > v[:-1])[tie].all()):
+    if stable and not bool((v[1:] > v[:-1])[tie].all()):
         raise AssertionError("equal keys are out of input order")
 
 
@@ -433,7 +459,7 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
                 "radix_scatter": radix_tiled.tile_scatter.launches,
                 "radix_dest": radix_tiled.tile_destinations.launches}
     peak = torch.cuda.max_memory_allocated(dev)
-    check_stable_kv(keys, out_k, out_v)
+    check_kv(keys, out_k, out_v)
     phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
                    f"{route_for('kv', N_MAIN)}): exact stable sort on the device; launches "
                    f"{launches}, expected 4, 4 and 0; peak device memory {peak / 1e9:.3f} GB "
@@ -488,7 +514,7 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
             lambda: torch.bincount(composite, minlength=nt * NUM_BINS))
         del composite, dest, base, hist
         cur_k, cur_v = nxt
-    check_stable_kv(keys, cur_k, cur_v)
+    check_kv(keys, cur_k, cur_v)
     phase("compare", f"n={N_MAIN} chunk={tile}, the 4 passes of the radix_tiled sort on their own "
                      f"keys: histogram max_abs_err {err['histogram']}, rank-and-scatter (both "
                      f"modes) max_abs_err {err['radix_dest']}; the passes by hand give the exact "
@@ -823,7 +849,7 @@ def samplesort_main_path(dev, rng, smi: str) -> tuple:
     torch.cuda.synchronize()
     launches = samplesort.place_runs.launches
     st["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    check_stable_kv(keys, out_k, out_v)
+    check_kv(keys, out_k, out_v)
     del out_k, out_v
     samplesort.place_runs.launches = 0
     out = vt.sort(keys, backend="samplesort")
@@ -1038,6 +1064,104 @@ def crossovers(dev, smi: str) -> dict:
             phase("time", f"crossover {op} n={n}: " + ", ".join(
                 f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
                 + f" ms; fastest {best}, the table routes {route_for(op, n)} [{smi}]")
+    return out
+
+
+def random_u64(dev, n: int, seed: int) -> torch.Tensor:
+    """n uniform u64 keys over the full width (their int64 view drawn below
+    2^63 - 1, randint's exclusive bound)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-(2**63), 2**63 - 1, (n,), dtype=torch.int64, device=dev,
+                         generator=gen).view(torch.uint64)
+
+
+def sort_flat_u64_chain(enc: torch.Tensor, values: tuple = ()):
+    """The former u64 kv form of the library path, the JAX package's TPU
+    workaround, timed beside the one-sort form that replaced it
+    (``segsort.sort_flat_pairs``): two chained stable 32-bit-digit
+    ``torch.sort`` passes, low digit first, each carrying the other digit
+    and the payloads."""
+    bits = enc.view(torch.int64)
+    lo = bits.to(torch.int32).view(torch.uint32)
+    hi = (bits >> 32).to(torch.int32).view(torch.uint32)
+    lo_s, rest = segsort.sort_flat_pairs(lo, (hi,) + tuple(values))
+    hi_s, rest2 = segsort.sort_flat_pairs(rest[0], (lo_s,) + tuple(rest[1:]))
+    out = (hi_s.view(torch.int32).to(torch.int64) << 32) | (
+        rest2[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+    return out.view(torch.uint64), tuple(rest2[1:])
+
+
+def sort_packed_u32(enc: torch.Tensor, value: torch.Tensor):
+    """The JAX package's unstable kv path for its library sort, timed beside
+    the stable carry the port runs instead: u32 key and 4-byte payload
+    packed one int64 a pair (the signed-order key above the payload's bits),
+    one ``torch.sort``, and unpacked. It lost at every size (PERF.md)."""
+    packed = (segsort.to_signed_order(enc).to(torch.int64) << 32) | (
+        bits_view(value).to(torch.int64) & 0xFFFFFFFF)
+    s, _ = torch.sort(packed)
+    out_k = segsort.from_signed_order((s >> 32).to(torch.int32), torch.uint32)
+    return out_k, s.to(torch.int32).view(value.dtype)
+
+
+def turns(fns: dict, keys: torch.Tensor, fresh: bool) -> dict:
+    """Device ms of each ``fns[name](keys)``, in turns: in order, then in
+    reverse, each a median of REPS calls. ``fresh``: each call sorts a new
+    remix of the keys (``measure_seconds_per_call``; uniform keys stay
+    uniform); else every call sorts the same keys (a remix would make Zipf
+    keys uniform; no sort modifies its input)."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        fn = fns[name]
+        times[name].append(measure_seconds_per_call(fn, keys, reps=REPS) * 1e3 if fresh
+                           else time_ms(lambda: fn(keys)))
+    return times
+
+
+def won_every_turn(t: dict):
+    """The engine that was faster than every other in every turn, or None."""
+    for e, v in t.items():
+        if all(max(v) < min(w) for x, w in t.items() if x != e):
+            return e
+    return None
+
+
+def route_crossovers(dev, zipf: torch.Tensor, smi: str) -> dict:
+    """The crossovers behind the ROUTE_TABLE rows of the dispatcher's other
+    paths, at every size of CROSS_SIZES, in turns, in this one process:
+    argsort of u32 keys, and stable=False u32 kv with one 4-byte payload
+    (tiled's stable carry beside the JAX package's packed sort); then on
+    u64 keys, full-width uniform and Zipf (the first n of ``zipf``,
+    BASELINE.json config 4), keys alone, stable kv with one 4-byte payload
+    (tiled's one int64 sort beside the former two-pass chain) and argsort.
+    Every op also runs through merge and radix_tiled. Prints each with the
+    engine that won every turn and the engine the table picks. Returns
+    {(op, dist, n): {engine: [ms...]}}."""
+    out = {}
+
+    def engines(call):
+        return {b: (lambda k, b=b: call(k, b)) for b in ("tiled", "merge", "radix_tiled")}
+
+    for n in CROSS_SIZES:
+        v1 = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+        argsort = engines(lambda k, b: vt.argsort(k, backend=b))
+        unstable = engines(lambda k, b: vt.sort_pairs(k, v1, backend=b, stable=False))
+        unstable["tiled packed"] = lambda k: sort_packed_u32(k, v1)
+        u32 = random_u32(dev, n, SEED + 90)
+        cases = [("argsort", "uniform", u32, argsort), ("kv_unstable", "uniform", u32, unstable)]
+        kv64 = engines(lambda k, b: vt.sort_pairs(k, v1, backend=b))
+        kv64["tiled two-pass chain"] = lambda k: sort_flat_u64_chain(k, (v1,))
+        for dist, keys in (("uniform", random_u64(dev, n, SEED + 91)), ("zipf", zipf[:n])):
+            cases += [("keys64", dist, keys, engines(lambda k, b: vt.sort(k, backend=b))),
+                      ("kv64", dist, keys, kv64),
+                      ("argsort64", dist, keys, argsort)]
+        for op, dist, keys, fns in cases:
+            t = turns(fns, keys, fresh=dist == "uniform")
+            out[(op, dist, n)] = t
+            routed = route_for(op.removesuffix("64"), n, op.endswith("64"))
+            phase("time", f"crossover {op} {dist} n={n}: " + ", ".join(
+                f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
+                + f" ms; won every turn: {won_every_turn(t)}; the table routes {routed} [{smi}]")
+        del cases, keys, u32
     return out
 
 
@@ -1266,7 +1390,7 @@ def distributed_main_path(dev, rng, smi: str) -> tuple:
                 raise AssertionError(f"distributed sort C={chunks} {eng}: overflow "
                                      f"{overflow.tolist()}, balance {balance:.4f}")
             out_k, out_v = gather_sorted(pk, counts, pv)
-            check_stable_kv(keys, out_k, out_v)
+            check_kv(keys, out_k, out_v)
             del pk, pv, out_k, out_v
             n_local = N_MAIN // DIST_P
             cap = int(2.0 * n_local / (chunks * DIST_P)) + 64
@@ -1310,7 +1434,6 @@ def distributed_small_paths(dev, rng, smi: str) -> dict:
     them. Returns its launches and the kernels' errors."""
     from vkradixsort_tpu_torch.entry import dryrun_multichip
     from vkradixsort_tpu_torch.parallel.distributed import LocalMesh, sort_distributed
-    from vkradixsort_tpu_torch.utils.fixtures import make_keys
 
     t0 = time.perf_counter()
     dryrun_multichip(DIST_P, device=dev)
@@ -1363,7 +1486,7 @@ def nccl_world_one(dev, smi: str) -> dict:
         if bool(overflow.any()):
             raise AssertionError("NCCL world-size-1 sort overflowed")
         out_k, out_v = gather_sorted(pk, counts, pv, mesh=mesh)
-        check_stable_kv(keys, out_k, out_v)
+        check_kv(keys, out_k, out_v)
         del pk, pv, out_k, out_v
         ms = time_ms(lambda: sort_sharded(keys, mesh, values=values), reps=3)
         phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on GroupMesh (NCCL, world size "
@@ -1382,7 +1505,7 @@ def dist_local_crossovers(dev, smi: str) -> dict:
 
     out = {}
     for wide in (False, True):
-        for n in DIST_LOCAL_SIZES:
+        for n in DIST_LOCAL_SIZES + ((1 << 26,) if wide else ()):
             gen = torch.Generator(device=dev).manual_seed(SEED + 60 + n)
             dt = torch.int64 if wide else torch.int32
             info = torch.iinfo(dt)
@@ -1467,6 +1590,153 @@ def check_past_2_31(dev) -> None:
         raise AssertionError("the merge kernels disagree with their plain versions past 2^31")
 
 
+# --- 12. the dispatcher's other paths at the bench size, on their default routes
+
+def counted(call):
+    """``call()`` with every kernel counter of the dispatcher's routes set to
+    0 just before it and read just after: (result, {kernel: launches > 0})."""
+    torch.cuda.synchronize()
+    merge.tilesort.launches = merge.mergepath_level.launches = 0
+    histogram.tile_histograms.launches = 0
+    radix_tiled.tile_scatter.launches = radix_tiled.tile_destinations.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches,
+           "histogram": histogram.tile_histograms.launches,
+           "radix_scatter": radix_tiled.tile_scatter.launches,
+           "radix_dest": radix_tiled.tile_destinations.launches}
+    return out, {k: v for k, v in got.items() if v}
+
+
+def expected_launches(path: str, n: int, wide: bool, dev) -> dict:
+    """The kernel launches of one sort of n keys (u64 if ``wide``) with one
+    4-byte payload on ``path``: a histogram and a rank-and-scatter launch a
+    pass on radix_tiled; one tile sort and a launch a level on merge; none
+    on tiled (``torch.sort``)."""
+    if path == "tiled":
+        return {}
+    if path == "radix_tiled":
+        passes = 8 if wide else 4
+        return {"histogram": passes, "radix_scatter": passes}
+    if path == "merge":
+        tiles, levels = merge_launches(n, 2 if wide else 1, dev)
+        return {"tilesort": tiles, "mergepath": levels}
+    raise AssertionError(f"no ROUTE_TABLE row leads to {path!r}")
+
+
+def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
+    """The dispatcher's paths at 1e8 through the public entry points on
+    their default routes, each checked exactly on the device with its
+    kernel launches counted, and timed beside ``backend="tiled"``
+    (torch.sort) on the same keys: stable kv of u64 Zipf keys with an
+    arange payload (BASELINE.json config 4 at the bench size); argsort of
+    uniform u32 keys and of the u64 Zipf keys (a permutation under which
+    the keys are non-decreasing, increasing within equal keys);
+    ``stable=False`` kv of uniform u32 keys (keys non-decreasing, values a
+    permutation with ``keys_in[values] == keys_out``). Returns {slice:
+    launches}."""
+    n = N_MAIN
+    values = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    u32 = random_u32(dev, n, SEED + 92)
+
+    def by_perm(keys, perm):
+        return bits_view(keys)[bits_view(perm).to(torch.int64)].view(keys.dtype)
+
+    cases = [
+        ("stable kv, u64 zipf keys", "kv", zipf, True,
+         lambda b: vt.sort_pairs(zipf, values, backend=b),
+         lambda out: check_kv(zipf, *out)),
+        ("argsort, u32 uniform keys", "argsort", u32, False,
+         lambda b: vt.argsort(u32, backend=b),
+         lambda perm: check_kv(u32, by_perm(u32, perm), perm)),
+        ("argsort, u64 zipf keys", "argsort", zipf, True,
+         lambda b: vt.argsort(zipf, backend=b),
+         lambda perm: check_kv(zipf, by_perm(zipf, perm), perm)),
+        ("stable=False kv, u32 uniform keys", "kv_unstable", u32, False,
+         lambda b: vt.sort_pairs(u32, values, backend=b, stable=False),
+         lambda out: check_kv(u32, *out, stable=False)),
+    ]
+    launches = {}
+    for what, op, keys, wide, call, check in cases:
+        path = route_for(op, n, wide)
+        out, got = counted(lambda: call(None))
+        check(out)
+        del out
+        want = expected_launches(path, n, wide, dev)
+        ms = {"default": time_ms(lambda: call(None), reps=3),
+              "tiled": time_ms(lambda: call("tiled"), reps=3)}
+        phase("slice", f"{what} n={n} on its default route {path}: exact on the device; "
+                       f"launches {got}, expected {want}; {ms['default']:.3f} ms against "
+                       f"torch.sort's {ms['tiled']:.3f} ms [{smi}]")
+        if got != want:
+            raise AssertionError(f"{what}: the default route {path} launched {got}, "
+                                 f"expected {want}")
+        launches[what] = got
+    return launches
+
+
+def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
+    """Each of the 8 passes of a radix_tiled sort of u64 ``keys`` with an
+    arange u32 payload, on the sort's own intermediate keys: the histogram
+    kernel and the rank-and-scatter kernel bitwise against their plain
+    versions, and timed beside their bounds (the histogram reads the keys,
+    8 B a key, and writes its table; the pass reads and writes keys and
+    payload, 24 B an element, and reads the table) and the share of the
+    keys in the pass's most common digit. Returns the per-pass ms, the
+    bounds and the errors."""
+    tile = vt.SortConfig().chunk
+    n = keys.numel()
+    table = 4 * NUM_BINS * cdiv(n, tile)
+    st = {"histogram": [], "radix_dest": [], "histogram_bound": bound_ms(8 * n + table),
+          "radix_dest_bound": bound_ms(24 * n + table), "err": {"histogram": 0, "radix_dest": 0}}
+    cur_k = keys
+    cur_v = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    for shift in range(0, 64, 8):
+        hist = histogram.tile_histograms(cur_k, shift, tile)
+        e_hist = max_abs_err([hist], [histogram.tile_histograms_plain(cur_k, shift, tile)])
+        base = reference.exclusive_bin_offsets(hist)
+        nxt = radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base)
+        e_move = max_abs_err(list(nxt), list(radix_tiled.tile_scatter_plain(cur_k, cur_v, shift,
+                                                                            tile, base)))
+        st["err"]["histogram"] = max(st["err"]["histogram"], e_hist)
+        st["err"]["radix_dest"] = max(st["err"]["radix_dest"], e_move)
+        h_ms = time_ms(lambda: histogram.tile_histograms(cur_k, shift, tile))
+        s_ms = time_ms(lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base))
+        st["histogram"].append(h_ms)
+        st["radix_dest"].append(s_ms)
+        top = int(hist.sum(0).max()) / n
+        phase("time", f"n={n} {what} radix pass at shift {shift}: histogram {h_ms:.4f} ms "
+                      f"(bound {st['histogram_bound']:.4f}, {st['histogram_bound'] / h_ms:.1%}), "
+                      f"rank-and-scatter {s_ms:.4f} ms (bound {st['radix_dest_bound']:.4f}, "
+                      f"{st['radix_dest_bound'] / s_ms:.1%}); the most common digit holds "
+                      f"{top:.1%} of the keys; max_abs_err {e_hist} / {e_move} [{smi}]")
+        del hist, base
+        cur_k, cur_v = nxt
+    check_kv(keys, cur_k, cur_v)
+    if any(st["err"].values()):
+        raise AssertionError(f"radix kernels disagree with their plain versions on the {what} "
+                             f"passes: {st['err']}")
+    phase("time", f"n={n} {what} radix_tiled, 8 passes summed: histogram "
+                  f"{sum(st['histogram']):.3f} ms (bound {8 * st['histogram_bound']:.3f}), "
+                  f"rank-and-scatter {sum(st['radix_dest']):.3f} ms (bound "
+                  f"{8 * st['radix_dest_bound']:.3f}); the passes by hand give the exact stable "
+                  f"sort [{smi}]")
+    return st
+
+
+def routes_only(dev, smi: str) -> None:
+    """``--routes``: the measurements behind this PR's ROUTE_TABLE rows
+    alone, for repeated runs: the dispatcher's crossovers (phase 10), the
+    dist_local crossovers (phase 11) and the radix kernels on the u64
+    passes (phase 12). Prints no JSON line."""
+    zipf = torch.from_numpy(make_keys(np.random.default_rng(SEED + 70), N_MAIN, np.uint64,
+                                      "zipf")).to(dev)
+    route_crossovers(dev, zipf, smi)
+    dist_local_crossovers(dev, smi)
+    radix_passes_u64(dev, zipf, "u64 zipf", smi)
+    radix_passes_u64(dev, random_u64(dev, N_MAIN, SEED + 93), "u64 uniform", smi)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU")
@@ -1486,6 +1756,9 @@ def main() -> None:
     lib = kernels.build()
     kernels.load()
     phase("build", f"{time.perf_counter() - t0:.2f} s -> {lib.name}")
+    if sys.argv[1:] == ["--routes"]:
+        routes_only(dev, smi)
+        return
 
     # --- 3. each kernel against its plain version, bitwise, on the card
     rng = np.random.default_rng(SEED)
@@ -1537,7 +1810,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
     nlev = math.ceil(math.log2(N_MAIN / main_tile))
-    check_stable_kv(keys, out_k, out_v)
+    check_kv(keys, out_k, out_v)
     phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
                    f"{route_for('kv', N_MAIN)}): exact stable sort on the device; "
                    f"launches {launches}, expected tilesort 1 and mergepath {nlev}")
@@ -1571,6 +1844,9 @@ def main() -> None:
 
     # --- 10. the crossovers behind the route table
     crossovers(dev, smi)
+    zipf = torch.from_numpy(make_keys(np.random.default_rng(SEED + 70), N_MAIN, np.uint64,
+                                      "zipf")).to(dev)
+    route_crossovers(dev, zipf, smi)
 
     # --- 11. the distributed sort on 8 logical shards of the card
     dist_launches, dst = distributed_main_path(dev, rng, smi)
@@ -1579,6 +1855,13 @@ def main() -> None:
     n3 = nck3_kernel_times(dev, rng, smi)
     err = merged_err(err, dst["err"], dsm["err"], n3["err"])
     dist_local_crossovers(dev, smi)
+
+    # --- 12. the dispatcher's other paths at 1e8, and the radix kernels on u64 keys
+    launches["routes"] = route_slices(dev, zipf, smi)
+    u64 = {"zipf": radix_passes_u64(dev, zipf, "u64 zipf", smi),
+           "uniform": radix_passes_u64(dev, random_u64(dev, N_MAIN, SEED + 93), "u64 uniform",
+                                       smi)}
+    err = merged_err(err, u64["zipf"]["err"], u64["uniform"]["err"])
 
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
@@ -1604,14 +1887,20 @@ def main() -> None:
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],
          "max_abs_err": err["histogram"], "ms": rst["histogram"],
          "plain_ms": rst["histogram_plain"], "bound_ms": bound_ms(hist_bytes),
-         "bound_by": "bytes", "library_ms": rst["histogram_library"]},
+         "bound_by": "bytes", "library_ms": rst["histogram_library"],
+         "u64_zipf_1e8_ms": sum(u64["zipf"]["histogram"]),
+         "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["histogram_bound"],
+         "u64_uniform_1e8_ms": sum(u64["uniform"]["histogram"])},
         {"name": "radix_dest", "route": "cuda",
          "source": "vkradixsort_tpu_torch/csrc/radix_dest.cu",
          "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86",
          "launches": launches["radix_scatter"], "max_abs_err": err["radix_dest"],
          "ms": rst["radix_scatter"], "plain_ms": rst["radix_scatter_plain"],
          "bound_ms": bound_ms(move_bytes), "bound_by": "bytes", "library_ms": None,
-         "pr5": "3.397 ms dest + 1.740 widen + 16.161 torch scatter"},
+         "pr5": "3.397 ms dest + 1.740 widen + 16.161 torch scatter",
+         "u64_zipf_1e8_ms": sum(u64["zipf"]["radix_dest"]),
+         "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["radix_dest_bound"],
+         "u64_uniform_1e8_ms": sum(u64["uniform"]["radix_dest"])},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

@@ -281,30 +281,108 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
     ("kv", 1 << 20, "tiled"), ("kv", (1 << 24) + 5, "radix_tiled"),
     ("keys", (1 << 20) + 3, "tiled"), ("keys", (1 << 23) - 3, "tiled"),
     ("keys", (1 << 24) + 5, "radix_tiled"), ("kv2", (1 << 24) + 5, "tiled"),
+    ("keys64", (1 << 25) - 3, "tiled"), ("keys64", (1 << 25) + 5, "radix_tiled"),
+    ("kv64", (1 << 23) - 3, "tiled"), ("kv64", (1 << 24) + 5, "radix_tiled"),
+    ("kv_unstable", (1 << 23) - 3, "tiled"), ("kv_unstable", (1 << 24) + 5, "radix_tiled"),
+    ("kv_unstable64", (1 << 23) - 3, "tiled"), ("kv_unstable64", (1 << 24) + 5, "radix_tiled"),
+    ("argsort", (1 << 25) - 3, "tiled"), ("argsort", (1 << 25) + 5, "radix_tiled"),
+    ("argsort64", (1 << 25) + 5, "tiled"),
 ])
 def test_default_route_follows_the_table(dev, op, n, engine):
     # each row of ROUTE_TABLE leads to its engine's kernels; a two-payload
     # call never reaches radix_tiled, which takes one payload
     from vkradixsort_tpu_torch.engine.config import route_for
 
-    assert route_for(op, n) == engine
+    wide, base = op.endswith("64"), op.removesuffix("64")
+    assert route_for(base, n, wide) == engine
     rng = np.random.default_rng(n)
-    keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint32)
+    keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint64 if wide else np.uint32)
     vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32)]
-    vals = vals[:{"keys": 0, "kv": 1, "kv2": 2}[op]]
+    vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2}[base]]
     before = (merge.tilesort.launches, radix_tiled.tile_scatter.launches)
     tk = torch.from_numpy(keys).to(dev)
-    if vals:
-        ok, ov = vt.sort_pairs(tk, [torch.from_numpy(v).to(dev) for v in vals])
+    perm = np.argsort(keys, kind="stable")
+    if base == "argsort":
+        got = vt.argsort(tk)
+        np.testing.assert_array_equal(got.cpu().numpy(), perm.astype(np.uint32))
+        ok, ov = common.take(tk, torch.from_numpy(perm).to(dev)), []
+    elif vals:
+        ok, ov = vt.sort_pairs(tk, [torch.from_numpy(v).to(dev) for v in vals],
+                               stable=base != "kv_unstable")
     else:
         ok, ov = vt.sort(tk), []
     ran = (merge.tilesort.launches > before[0], radix_tiled.tile_scatter.launches > before[1])
     assert ran == (engine == "merge", engine == "radix_tiled")
-    perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     for o, v in zip(ov, vals):
         np.testing.assert_array_equal(common.bits_view(o).cpu().numpy(),
                                       v.view(np.int32)[perm])
+
+
+def _route_keys(rng, n, dtype):
+    """Keys with ties and the dtype's extremes, of any key dtype."""
+    keys = (rng.integers(0, 50, size=n) - 25).astype(dtype)
+    if np.dtype(dtype).kind in "ui":
+        keys[rng.random(n) < 0.02] = np.iinfo(dtype).max
+    return keys
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64, np.float32, np.int64])
+@pytest.mark.parametrize("backend", [None, "tiled", "merge", "radix_tiled"])
+def test_argsort_cuda_matches_cpu(dev, key_dtype, backend):
+    # the stable argsort has one answer: every engine on the card gives the
+    # permutation of the CPU's library path (tiled.argsort_tiled)
+    rng = np.random.default_rng(12)
+    for n in (70_001, (1 << 24) + 5):
+        keys = torch.from_numpy(_route_keys(rng, n, key_dtype))
+        for descending in (False, True):
+            got = vt.argsort(keys.to(dev), backend=backend, descending=descending)
+            want = vt.argsort(keys, backend="tiled", descending=descending)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.uint32 and torch.equal(common.bits_view(got).cpu(),
+                                                             common.bits_view(want))
+        keys2d = torch.from_numpy(_route_keys(rng, 3 * 4099, key_dtype)).view(3, -1)
+        assert torch.equal(vt.argsort(keys2d.to(dev)).view(torch.int32).cpu(),
+                           vt.argsort(keys2d).view(torch.int32))
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.int32, np.float32, np.uint64])
+@pytest.mark.parametrize("backend", [None, "tiled", "merge", "radix_tiled"])
+def test_unstable_kv_cuda_matches_cpu(dev, key_dtype, backend):
+    # stable=False runs every engine's stable pipeline: on the card it
+    # equals the CPU's library path, stable=False or not
+    rng = np.random.default_rng(13)
+    for n in (70_001, (1 << 24) + 5):
+        keys = torch.from_numpy(_route_keys(rng, n, key_dtype))
+        vals = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+                                .astype(np.uint32))
+        for descending in (False, True):
+            gk, gv = vt.sort_pairs(keys.to(dev), vals.to(dev), backend=backend,
+                                   descending=descending, stable=False)
+            ck, cv = vt.sort_pairs(keys, vals, backend="tiled", descending=descending)
+            torch.cuda.synchronize()
+            assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(ck))
+            assert torch.equal(common.bits_view(gv).cpu(), common.bits_view(cv))
+
+
+@pytest.mark.parametrize("distribution", ["zipf", "uniform"])
+@pytest.mark.parametrize("backend", [None, "tiled", "merge", "radix_tiled"])
+def test_u64_kv_cuda_matches_cpu(dev, distribution, backend):
+    # stable u64 kv (BASELINE.json config 4's keys) on every engine of its
+    # routes equals the library path on CPU tensors
+    from vkradixsort_tpu_torch.utils.fixtures import make_keys
+
+    rng = np.random.default_rng(14)
+    for n in (70_001, (1 << 24) + 5):
+        keys = torch.from_numpy(make_keys(rng, n, np.uint64, distribution))
+        vals = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+        for descending in (False, True):
+            gk, gv = vt.sort_pairs(keys.to(dev), vals.to(dev), backend=backend,
+                                   descending=descending)
+            ck, cv = vt.sort_pairs(keys, vals, backend="tiled", descending=descending)
+            torch.cuda.synchronize()
+            assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(ck))
+            assert torch.equal(common.bits_view(gv).cpu(), common.bits_view(cv))
 
 
 def _radix_keys(rng, n, dtype, kind):

@@ -115,7 +115,8 @@ def test_default_route_decides_from_the_tensor():
     assert route_for("keys", 1 << 23) == "tiled"
     assert route_for("keys", 1 << 24) == "radix_tiled"
     assert route_for("kv2", 1 << 27) == "tiled"  # torch.sort wins every size measured
-    assert route_for("kv", 1 << 27, wide=True) == "tiled"  # 64-bit keys: not measured
+    assert route_for("kv", 1 << 23, wide=True) == "tiled"  # 64-bit keys: the kv64 rows
+    assert route_for("kv", 1 << 27, wide=True) == "radix_tiled"
 
 
 def test_bad_calls_raise():

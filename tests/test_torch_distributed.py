@@ -342,7 +342,7 @@ def test_pick_local_engine_follows_the_route_table(monkeypatch):
     v4 = [torch.zeros(1, dtype=torch.int32)]
     assert dist._pick_local_engine(None, torch.int32, v4, 1 << 20, 1, cuda) == "xla"
     assert dist._pick_local_engine(None, torch.int32, v4, 1 << 22, 1, cuda) == "merge"
-    assert dist._pick_local_engine(None, torch.int32, v4, 1 << 22, 2, cuda) == "xla"  # no rows
+    assert dist._pick_local_engine(None, torch.int32, v4, 1 << 22, 2, cuda) == "xla"  # dist_local64
 
 
 @pytest.mark.parametrize("chunks", [1, 2])

@@ -9,7 +9,9 @@ It imports ``torch`` and never ``jax``. Public API, as in the JAX package:
     sort_segments(keys_2d)      -> every row sorted
 
 On a CUDA tensor the default route (``engine/config.ROUTE_TABLE``) sends
-stable 32-bit keys, alone or with one 4-byte payload, above 2^23 elements to
+32- and 64-bit keys with one 4-byte payload (``stable=False`` too) and
+32-bit keys alone above 2^23 elements, and 64-bit keys alone and the
+argsort of 32-bit keys above 2^25, to
 the radix_tiled engine's hand-written kernels (``csrc/``, built with
 ``nvcc`` at first use) and everything else to ``torch.sort``.
 ``backend="merge"`` runs the merge engine's tile-sort and merge-path

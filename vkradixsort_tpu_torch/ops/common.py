@@ -129,7 +129,10 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def positions(n: int, device) -> torch.Tensor:
-    """0..n-1 as uint32 (uint64 from 2^32 on), like the JAX argsort."""
+    """0..n-1 as uint32 (uint64 from 2^32 on), like the JAX argsort; made
+    in int32 where it fits, without an int64 pass."""
+    if n < 1 << 31:
+        return torch.arange(n, dtype=torch.int32, device=device).view(torch.uint32)
     idx = torch.arange(n, dtype=torch.int64, device=device)
     if n < 1 << 32:
         return idx.to(torch.int32).view(torch.uint32)

@@ -23,10 +23,11 @@ The merge, radix_tiled, fused, bitonic and samplesort engines launch
 hand-written CUDA kernels on CUDA tensors and run their plain versions on
 CPU tensors. ``backend=None`` decides from the tensor, up front: CUDA
 tensors follow ``engine/config.ROUTE_TABLE`` (tiled or radix_tiled, by
-operation and size, as measured on the H100); CPU tensors take "tiled".
-No default route leads to merge, fused, reference, bitonic or samplesort. Every
-entry point is stable and bitwise-exact against the JAX package on the
-same inputs.
+operation, key width and size, as measured on the H100); CPU tensors take
+"tiled". No default route leads to merge, fused, reference, bitonic or
+samplesort. Every entry point is stable, ``sort_pairs(stable=False)`` too,
+and bitwise-exact against the JAX package's stable results on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -56,13 +57,15 @@ from vkradixsort_tpu_torch.ops.common import (
 ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
 
 
-def _route(keys: torch.Tensor, backend: str | None, vals: tuple = ()) -> str:
+def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = "kv") -> str:
     """The engine of a call: ``backend`` when given; else "tiled" for CPU
-    tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of the call's
-    operation ("keys", "kv" with one 4-byte payload, "kv2" with two) and
-    size, or "tiled" for other payload sets. A row never sends a call to an
-    engine that refuses it (JAX's rule): radix_tiled takes one payload and
-    n < 2^31, merge at most two carry planes."""
+    tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of ``op`` at the
+    call's size: "kv" reads "keys", "kv" or "kv2" by the number of 4-byte
+    payloads; "argsort"; "kv_unstable" (one payload); each with its "64"
+    twin for u64-encoded keys. Other payload sets take "tiled". A row never
+    sends a call to an engine that refuses it (JAX's rule): radix_tiled
+    takes one payload (argsort's positions are one) and n < 2^31, merge at
+    most two carry planes."""
     if backend is not None:
         if backend not in ENGINES:
             raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
@@ -71,8 +74,9 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = ()) -> str:
         return "tiled"
     if any(v.element_size() != 4 for v in vals) or len(vals) > merge.MAX_KERNEL_CARRY:
         return "tiled"  # the table's rows are for at most two 4-byte payloads
+    if op == "kv":
+        op = ("keys", "kv", "kv2")[len(vals)]
     n = keys.shape[0]
-    op = ("keys", "kv", "kv2")[len(vals)]
     path = route_for(op, n, sortable_dtype(keys.dtype) == torch.uint64)
     if path == "radix_tiled" and (len(vals) > 1 or n >= 1 << 31):
         return "tiled"
@@ -138,11 +142,13 @@ def _only_one_payload(path: str, vals: tuple) -> None:
         )
 
 
-def _sort_encoded_keys(keys, vals, config, path, descending):
+def _encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
     enc = encode_keys(keys)
-    if descending:
-        enc = complement(enc)
-    out_k, out_vs = _sort_encoded(enc, vals, config, path)
+    return complement(enc) if descending else enc
+
+
+def _sort_encoded_keys(keys, vals, config, path, descending):
+    out_k, out_vs = _sort_encoded(_encode(keys, descending), vals, config, path)
     if descending:
         out_k = complement(out_k)
     return decode_keys(out_k, keys.dtype), out_vs
@@ -188,8 +194,14 @@ def sort_pairs(
     ``values`` may be one tensor or a tuple/list of tensors (all length-N):
     every payload is permuted by the same stable key order in one sort.
     Returns ``(sorted_keys, values_like)`` with the container type kept.
-    ``stable=False`` runs the stable path, which is also a valid unstable
-    answer.
+
+    ``stable=False`` relaxes the order of equal keys and follows
+    ``ROUTE_TABLE["kv_unstable"]`` (``"kv_unstable64"`` for 64-bit keys) for
+    one 4-byte payload; every engine then runs its stable pipeline, also a
+    valid unstable answer. The port's merge has no tie plane to drop, unlike
+    the JAX engine's. The JAX package's packed path for "tiled" (32-bit key
+    and 4-byte payload in one 64-bit sort key) lost to the stable carry at
+    every size on the H100, so it is not ported (PERF.md section 5).
     """
     multi = isinstance(values, (tuple, list))
     vals = tuple(values) if multi else (values,)
@@ -204,7 +216,7 @@ def sort_pairs(
         )
     if any(v.device != keys.device for v in vals):
         raise ValueError("keys and values must lie on one device")
-    path = _route(keys, backend, vals)
+    path = _route(keys, backend, vals, "kv_unstable" if not stable and len(vals) == 1 else "kv")
     out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
     return out_k, (type(values)(out_vs) if multi else out_vs[0])
 
@@ -216,19 +228,27 @@ def argsort(
     backend: str | None = None,
     descending: bool = False,
 ) -> torch.Tensor:
-    """Stable argsort: ``sort_pairs(keys, arange)`` (uint32 indices for
-    N < 2^32). 2-D keys give each row's permutation."""
+    """Stable argsort indices (uint32 for N < 2^32, else uint64).
+
+    Follows ``ROUTE_TABLE["argsort"]`` (``"argsort64"`` for 64-bit keys).
+    On "tiled" the answer is ``torch.sort``'s own permutation
+    (``tiled.argsort_tiled``); every other engine sorts the keys with their
+    positions as one payload, as ``sort_pairs(keys, arange)``. On merge that
+    is the plane set the JAX package's ``merge.argsort_merge`` moves (key
+    planes and positions), so it needs no twin of its own. 2-D keys give
+    each row's permutation, from ``torch.sort(dim=1)``.
+    """
     if keys.dim() == 2:
         if backend is not None:
             raise ValueError("2-D keys route to sort_segments; backend= does not apply")
-        rows, cols = keys.shape
-        idx = positions(cols, keys.device).expand(rows, cols)
-        _, perm = sort_segments(keys, idx, descending=descending)
-        return perm
+        return segsort.argsort_segments(_encode(keys, descending))
     if keys.dim() != 1:
         raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
+    path = _route(keys, backend, op="argsort")
+    if path == "tiled":
+        return tiled.argsort_tiled(_encode(keys, descending))
     idx = positions(keys.shape[0], keys.device)
-    _, perm = sort_pairs(keys, idx, config=config, backend=backend, descending=descending)
+    _, (perm,) = _sort_encoded_keys(keys, (idx,), config, path, descending)
     return perm
 
 
@@ -246,10 +266,7 @@ def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
     vals = () if values is None else (tuple(values) if multi else (values,))
     if any(v.shape != keys.shape for v in vals):
         raise ValueError("sort_segments payloads must have the keys' shape")
-    enc = encode_keys(keys)
-    if descending:
-        enc = complement(enc)
-    out_enc, out_vs = segsort.sort_segments(enc, vals)
+    out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
     if descending:
         out_enc = complement(out_enc)
     out_k = decode_keys(out_enc, keys.dtype)

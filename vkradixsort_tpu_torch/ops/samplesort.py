@@ -348,10 +348,7 @@ def sort_pairs_samplesort(
                                                                 oversample)
     overflow = bool(overflow)
     if overflow:
-        if enc.dtype == torch.uint32:
-            out_k, (out_v,) = segsort.sort_flat_u32(enc, (values,))
-        else:
-            out_k, (out_v,) = segsort.sort_flat_u64(enc, (values,))
+        out_k, (out_v,) = segsort.sort_flat_pairs(enc, (values,))
         return (out_k, out_v, True) if _debug_overflow else (out_k, out_v)
 
     slots = place_runs([k_rows, g_rows, v_rows], starts, lens, cap,

@@ -3,8 +3,10 @@
 Port of ``vkradixsort_tpu/ops/segsort.py``. Encoded (unsigned) keys move into
 order-isomorphic int32/int64 space, where ``torch.sort`` is implemented on
 every device; payloads of any dtype ride along by indexing with the
-permutation the stable sort returns. 64-bit keys with payloads sort as two
-stable passes over 32-bit digits (LSD radix), as the JAX package does.
+permutation the stable sort returns. ``torch.sort`` returns that permutation
+(int64) whatever it sorts, so an argsort is the permutation itself,
+narrowed, and 64-bit keys with payloads sort in one int64 sort, where the
+JAX package chained two 32-bit passes for the TPU.
 """
 
 from __future__ import annotations
@@ -38,27 +40,28 @@ def sort_flat(enc: torch.Tensor) -> torch.Tensor:
     return from_signed_order(s, enc.dtype)
 
 
-def sort_flat_u32(enc: torch.Tensor, values: tuple = ()):
-    """Stable flat sort of uint32-encoded keys, carrying ``values``."""
+def sort_flat_pairs(enc: torch.Tensor, values: tuple = ()):
+    """Stable flat sort of uint32/uint64-encoded keys, carrying ``values``:
+    one ``torch.sort`` and one gather a payload, 64-bit keys too (the
+    former two chained 32-bit passes took 29.2 ms against 17.1 at 1e8 u64
+    kv on the H100, PERF.md section 5)."""
     s, perm = torch.sort(to_signed_order(enc), stable=True)
-    return from_signed_order(s, torch.uint32), tuple(take(v, perm) for v in values)
+    return from_signed_order(s, enc.dtype), tuple(take(v, perm) for v in values)
 
 
-def sort_flat_u64(enc: torch.Tensor, values: tuple = ()):
-    """uint64 keys: one direct int64 sort when keys-only, else two chained
-    stable 32-bit-digit passes (low digit first), each carrying the other
-    digit and the payloads."""
-    if not values:
-        return sort_flat(enc), ()
-    bits = enc.view(torch.int64)
-    lo = bits.to(torch.int32).view(torch.uint32)
-    hi = (bits >> 32).to(torch.int32).view(torch.uint32)
-    lo_s, rest = sort_flat_u32(lo, (hi,) + tuple(values))
-    hi_s, rest2 = sort_flat_u32(rest[0], (lo_s,) + tuple(rest[1:]))
-    out = (hi_s.view(torch.int32).to(torch.int64) << 32) | (
-        rest2[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    )
-    return out.view(torch.uint64), tuple(rest2[1:])
+def narrow_indices(perm: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.sort``'s int64 permutation in the JAX argsort's index dtype:
+    uint32 below 2^32 (the truncation keeps the bits), else uint64."""
+    if n < 1 << 32:
+        return perm.to(torch.int32).view(torch.uint32)
+    return perm.view(torch.uint64)
+
+
+def argsort_flat(enc: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of uint32/uint64-encoded keys: the permutation of one
+    stable ``torch.sort``, with no payload to gather."""
+    _, perm = torch.sort(to_signed_order(enc), stable=True)
+    return narrow_indices(perm, enc.shape[0])
 
 
 def sort_segments(enc2d: torch.Tensor, values2d: tuple = ()):
@@ -70,3 +73,10 @@ def sort_segments(enc2d: torch.Tensor, values2d: tuple = ()):
         flat = (perm + cols * torch.arange(rows, device=perm.device)[:, None]).reshape(-1)
         values2d = tuple(take(v.reshape(-1), flat).reshape(rows, cols) for v in values2d)
     return from_signed_order(s, enc2d.dtype), tuple(values2d)
+
+
+def argsort_segments(enc2d: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of every row of a 2-D encoded array: the permutation
+    of ``torch.sort(dim=1)``, with no positions to gather."""
+    _, perm = torch.sort(to_signed_order(enc2d), dim=1, stable=True)
+    return narrow_indices(perm, enc2d.shape[1])

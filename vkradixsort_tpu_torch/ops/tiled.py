@@ -1,8 +1,8 @@
 """The library-sort path: ``torch.sort`` in sign-flipped int space.
 
-Port of ``vkradixsort_tpu/ops/tiled.py``. It is the route of every call the
-merge engine does not take, at every size and on every device, and the
-route of every CPU tensor unless ``backend="merge"`` is explicit.
+Port of ``vkradixsort_tpu/ops/tiled.py``. It is the route of every call
+``engine/config.ROUTE_TABLE`` sends nowhere else, and of every CPU tensor
+unless ``backend=`` names another engine.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ from vkradixsort_tpu_torch.ops import segsort
 def sort_tiled(enc: torch.Tensor, vals: tuple = ()):
     """Sort encoded (unsigned) keys and any number of payloads. Returns
     ``(sorted_keys, sorted_vals_tuple)``; stable."""
-    if enc.dtype == torch.uint32:
-        return segsort.sort_flat_u32(enc, vals)
-    if enc.dtype == torch.uint64:
-        return segsort.sort_flat_u64(enc, vals)
-    raise TypeError(f"encoded keys must be uint32/uint64, got {enc.dtype}")
+    return segsort.sort_flat_pairs(enc, vals)
+
+
+def argsort_tiled(enc: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of encoded (unsigned) keys: ``torch.sort``'s own
+    permutation, uint32 below 2^32 indices, else uint64."""
+    return segsort.argsort_flat(enc)
