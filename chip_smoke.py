@@ -11,10 +11,15 @@ and on ``backend="radix_tiled"`` (one of them the default route at 1e8,
 a small array, ``backend="bitonic"`` and ``backend="samplesort"``, and the
 distributed sort ``parallel.distributed.sort_sharded`` over 8 logical
 shards of the card and over NCCL, and the dispatcher's other paths
-(u64 Zipf kv, argsort, ``stable=False`` kv) on their default routes.
+(u64 Zipf kv, argsort, ``stable=False`` kv) on their default routes. The
+1e8 sorts' outputs are also checked on the host, bitwise, against the
+port's native host runtime (``vkradixsort_tpu_torch.native``), as the JAX
+package's bench checks its 1e8 sort.
 
   1. probe the card (``nvidia-smi`` name and power limit);
-  2. build the kernels from the sources in this checkout;
+  2. build the kernels from the sources in this checkout, and the host
+     runtime with ``g++`` (the run fails without it: its numpy fallback is
+     no oracle at 1e8);
   3. hold each kernel bitwise against its plain PyTorch version on the card:
      the tile sort on tiles with heavy ties and a ragged last tile, the
      merge-path kernel on every level of a 1e6-element sort, both at three
@@ -28,7 +33,12 @@ shards of the card and over NCCL, and the dispatcher's other paths
      then 1e8 pairs with an exact check on the device, counting each
      kernel's launches;
   5. the radix_tiled path: the same at 1e6 and 1e8 (4 histogram and 4
-     rank-and-scatter launches, no destination-only launch), a profiler
+     rank-and-scatter launches, no destination-only launch); the 1e8
+     sort's whole output on the host, bitwise against the host runtime's
+     stable argsort (keys against ``keys[perm]``, values against ``perm``),
+     and in ``bench.py``'s 16 windows of 1024, both ends included; the
+     oracle's time at 1e8 and 1e7 beside numpy's stable argsort at 1e7,
+     with the host's CPU model; a profiler
      trace of the 1e8 sort (its kernels by name: no torch indexing or
      scatter, no dtype conversion), each pass's histogram kernel and both
      modes of the rank-and-scatter kernel held bitwise against their plain
@@ -106,11 +116,17 @@ shards of the card and over NCCL, and the dispatcher's other paths
      their default routes, each exact on the device with its kernel
      launches counted and timed beside ``torch.sort``: stable kv of u64 Zipf
      keys (BASELINE.json config 4 at the bench size), argsort of u32 and of
-     u64 Zipf keys, ``stable=False`` u32 kv; then each of the 8 passes of a
+     u64 Zipf keys, ``stable=False`` u32 kv, the two kv sorts' keys also on
+     the host, whole and in 16 windows, bitwise against the host runtime's
+     radix oracle sort; then each of the 8 passes of a
      radix_tiled sort of the u64 Zipf keys, and of uniform u64 keys, on the
      sort's own intermediate keys: the histogram and rank-and-scatter
      kernels bitwise against their plain versions, timed beside their
-     bounds, with the share of the pass's most common digit.
+     bounds, with the share of the pass's most common digit;
+ 13. the reference's own fixtures from the host runtime (1e6 mt19937 keys
+     in its 28-bit range, and the descending sequence) through
+     ``sort_pairs`` on the default route and on radix_tiled, bitwise
+     against the oracle, and the seconds the host checks added to the run.
 
 With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
 (``route_crossovers`` of phase 10, ``dist_local_crossovers`` of phase 11,
@@ -136,6 +152,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -145,6 +162,7 @@ import numpy as np
 import torch
 
 import vkradixsort_tpu_torch as vt
+from vkradixsort_tpu_torch import native
 from vkradixsort_tpu_torch.engine.config import route_for
 from vkradixsort_tpu_torch.ops import (
     bitonic,
@@ -174,6 +192,8 @@ N_FUSED = 1 << 15
 N_BITONIC_KEYS = 1 << 22  # the bitonic engine's size contract at one plane,
 N_BITONIC_KV = 1_398_101  # at three (stable u32 kv)
 N_BITONIC_KV64 = 838_860  # and at five (u64 keys, u64 payload)
+N_ORACLE_SMALL = 10_000_000  # where numpy's stable argsort is timed beside the oracle
+ORACLE_WINDOWS, ORACLE_WIDTH = 16, 1024  # bench.py's window gate
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (data sheet)
@@ -272,6 +292,139 @@ def check_numpy_kv(keys: np.ndarray, vals: np.ndarray, out_k, out_v, what: str) 
     if not (np.array_equal(bits_view(out_k).cpu().numpy().view(keys.dtype), keys[perm])
             and np.array_equal(bits_view(out_v).cpu().numpy().view(vals.dtype), vals[perm])):
         raise AssertionError(f"{what} disagrees with np.argsort(kind='stable')")
+
+
+def host_bits(x: torch.Tensor) -> np.ndarray:
+    """A 4- or 8-byte tensor's bits on the host, as numpy's unsigned dtype
+    of that width."""
+    b = bits_view(x).cpu().numpy()
+    return b.view(np.uint32 if b.itemsize == 4 else np.uint64)
+
+
+def host_cpu() -> str:
+    """The host's CPU model, with its vendor, family, model number and clock
+    (``/proc/cpuinfo``; a sandboxed host may report the name as unknown),
+    and ``os.cpu_count()``."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if not key.strip():
+                break  # the first processor's block ends at a blank line
+            fields.setdefault(key.strip(), value.strip())
+    cpu = ", ".join(f"{k} {fields.get(k, '?')}" for k in ("vendor_id", "cpu family", "model",
+                                                          "cpu MHz"))
+    return f"{fields.get('model name', '?')} ({cpu}), os.cpu_count() {os.cpu_count()}"
+
+
+def require_equal(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Raise unless ``got`` equals ``want`` bitwise (the host runtime's
+    ``first_mismatch``, the reference's testSort)."""
+    i = native.first_mismatch(got, want)
+    if i != -1:
+        raise AssertionError(f"{what}: first mismatch at {i}: {got[i]} against {want[i]}")
+
+
+def oracle_windows(what: str, got_k, want_k, got_v=None, want_v=None) -> None:
+    """bench.py's gate (``window_oracle_checks``): 16 windows of 1024, the
+    first and the last included, keys (and values) bitwise."""
+    n = got_k.size
+    starts = np.sort(np.random.default_rng(SEED).integers(0, n - ORACLE_WIDTH,
+                                                          size=ORACLE_WINDOWS))
+    starts[0], starts[-1] = 0, n - ORACLE_WIDTH
+    for s in starts.tolist():
+        w = slice(s, s + ORACLE_WIDTH)
+        require_equal(f"{what}, key window [{w.start}, {w.stop})", got_k[w], want_k[w])
+        if got_v is not None:
+            require_equal(f"{what}, value window [{w.start}, {w.stop})", got_v[w], want_v[w])
+
+
+def oracle_main_path(keys, out_k, out_v, route: str, smi: str) -> float:
+    """The 1e8 stable u32 kv sort of phase 5 on the host: its whole output
+    bitwise against the host runtime's stable argsort (keys against
+    ``keys[perm]``, values against ``perm``) and in bench.py's 16 windows;
+    then the oracle's time at 1e8 and 1e7 beside numpy's stable argsort at
+    1e7. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    keys_h, got_k, got_v = host_bits(keys), host_bits(out_k), host_bits(out_v)
+    copy_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    perm = native.oracle_argsort(keys_h)
+    argsort_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want_k = keys_h[perm]
+    what = f"sort_pairs n={keys_h.size} stable u32 kv on {route}"
+    require_equal(f"{what}, keys", got_k, want_k)
+    require_equal(f"{what}, values", got_v, perm)
+    oracle_windows(what, got_k, want_k, got_v, perm)
+    check_s = time.perf_counter() - t
+    phase("oracle", f"{what}: the whole output bitwise equal to the host runtime's stable "
+                    f"argsort, keys and values, and in bench.py's {ORACLE_WINDOWS} windows of "
+                    f"{ORACLE_WIDTH}; device-to-host copies {copy_s:.3f} s, oracle_argsort "
+                    f"{argsort_s:.3f} s, gather and compares {check_s:.3f} s")
+    del got_k, got_v, want_k, perm
+    small = keys_h[:N_ORACLE_SMALL]
+    t = time.perf_counter()
+    perm = native.oracle_argsort(small)
+    small_s = time.perf_counter() - t
+    t = time.perf_counter()
+    np_perm = np.argsort(small, kind="stable")
+    numpy_s = time.perf_counter() - t
+    require_equal(f"oracle_argsort n={small.size} against numpy's", perm,
+                  np_perm.astype(np.uint32))
+    phase("oracle", f"host stable argsort of uniform u32 keys: oracle_argsort n={keys_h.size} "
+                    f"{argsort_s:.3f} s, n={small.size} {small_s:.3f} s; np.argsort(kind="
+                    f"'stable') n={small.size} {numpy_s:.3f} s ({numpy_s / small_s:.1f}x the "
+                    f"oracle), equal [host: {host_cpu()}] [{smi}]")
+    return time.perf_counter() - t0
+
+
+def oracle_sorted_keys(what: str, keys, out_k, smi: str) -> float:
+    """The sorted keys of a 1e8 sort, whole and in bench.py's windows,
+    bitwise against the host runtime's radix oracle sort of its input keys.
+    Returns the seconds it took."""
+    t0 = time.perf_counter()
+    keys_h, got_k = host_bits(keys), host_bits(out_k)
+    t = time.perf_counter()
+    want = native.oracle_sort(keys_h, "radix")
+    sort_s = time.perf_counter() - t
+    require_equal(f"{what}, keys", got_k, want)
+    oracle_windows(what, got_k, want)
+    total = time.perf_counter() - t0
+    phase("oracle", f"{what} n={keys_h.size}: sorted keys bitwise equal to oracle_sort(keys, "
+                    f"'radix'), whole and in {ORACLE_WINDOWS} windows; oracle_sort "
+                    f"{sort_s:.3f} s, {total:.3f} s in all [host: {host_cpu()}]")
+    return total
+
+
+def oracle_fixtures(dev, smi: str) -> float:
+    """The reference's own fixtures (SingleRadixSort.cpp:85-98) from the
+    host runtime: 1e6 uniform keys in its 28-bit range from the seeded
+    mt19937 grid, and the descending sequence, each through ``sort_pairs``
+    with an arange payload on the default route and on radix_tiled, bitwise
+    against ``oracle_sort`` (keys) and ``oracle_argsort`` (values), and
+    ``first_unsorted``. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    values = torch.arange(N_SMALL, dtype=torch.int32, device=dev).view(torch.uint32)
+    fixtures = {"uniform 28-bit": native.generate_uniform(SEED, N_SMALL),
+                "descending": native.generate_descending(N_SMALL)}
+    for name, keys in fixtures.items():
+        want_k, perm = native.oracle_sort(keys, "radix"), native.oracle_argsort(keys)
+        require_equal(f"fixture {name}: the two oracles", keys[perm], want_k)
+        routes = []
+        for backend in (None, "radix_tiled"):
+            ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), values, backend=backend)
+            got_k, got_v = host_bits(ok), host_bits(ov)
+            what = f"fixture {name} n={N_SMALL} backend={backend}"
+            require_equal(f"{what}, keys", got_k, want_k)
+            require_equal(f"{what}, values", got_v, perm)
+            if native.first_unsorted(got_k) != -1:
+                raise AssertionError(f"{what}: unsorted at {native.first_unsorted(got_k)}")
+            routes.append(backend or f"default ({route_for('kv', N_SMALL)})")
+        phase("oracle", f"reference fixture {name} n={N_SMALL} (keys {int(keys.min())} to "
+                        f"{int(keys.max())}), sort_pairs on {' and '.join(routes)}: keys equal "
+                        "oracle_sort, values oracle_argsort, first_unsorted -1")
+    return time.perf_counter() - t0
 
 
 def radix_keys(rng, n: int, dtype, kind: str) -> np.ndarray:
@@ -466,6 +619,7 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
                    f"({before / 1e9:.3f} GB of it allocated before the call)")
     if launches != {"histogram": 4, "radix_scatter": 4, "radix_dest": 0}:
         raise AssertionError(f"the radix_tiled path did not run through the kernels: {launches}")
+    oracle_s = oracle_main_path(keys, out_k, out_v, backend or "the default route", smi)
     del out_k, out_v
     profile_radix_sort(keys, values, backend, smi)
 
@@ -532,6 +686,7 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     st["sweep"] = radix_chunk_sweep(dev, keys, values, smi)
     st["err"] = err
     st["peak_gb"] = peak / 1e9
+    st["oracle_s"] = oracle_s
     return launches, st
 
 
@@ -1633,8 +1788,9 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
     uniform u32 keys and of the u64 Zipf keys (a permutation under which
     the keys are non-decreasing, increasing within equal keys);
     ``stable=False`` kv of uniform u32 keys (keys non-decreasing, values a
-    permutation with ``keys_in[values] == keys_out``). Returns {slice:
-    launches}."""
+    permutation with ``keys_in[values] == keys_out``); the two kv sorts'
+    keys also on the host, bitwise against the host runtime's oracle sort.
+    Returns ({slice: launches}, the host oracle's seconds)."""
     n = N_MAIN
     values = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     u32 = random_u32(dev, n, SEED + 92)
@@ -1656,11 +1812,14 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
          lambda b: vt.sort_pairs(u32, values, backend=b, stable=False),
          lambda out: check_kv(u32, *out, stable=False)),
     ]
-    launches = {}
+    launches, oracle_s = {}, 0.0
     for what, op, keys, wide, call, check in cases:
         path = route_for(op, n, wide)
         out, got = counted(lambda: call(None))
         check(out)
+        if op != "argsort":  # the kv sorts' keys to the host oracle
+            oracle_s += oracle_sorted_keys(f"{what} on its default route {path}", keys, out[0],
+                                           smi)
         del out
         want = expected_launches(path, n, wide, dev)
         ms = {"default": time_ms(lambda: call(None), reps=3),
@@ -1672,7 +1831,7 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
             raise AssertionError(f"{what}: the default route {path} launched {got}, "
                                  f"expected {want}")
         launches[what] = got
-    return launches
+    return launches, oracle_s
 
 
 def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
@@ -1759,6 +1918,11 @@ def main() -> None:
     if sys.argv[1:] == ["--routes"]:
         routes_only(dev, smi)
         return
+    t0 = time.perf_counter()
+    so = native.build()  # raises if g++ is missing or fails: no numpy fallback here
+    if not native.available():
+        raise RuntimeError(f"the host runtime {so} does not load: {native._LIB_ERR}")
+    phase("build", f"host runtime (g++) {time.perf_counter() - t0:.2f} s -> {so.name}")
 
     # --- 3. each kernel against its plain version, bitwise, on the card
     rng = np.random.default_rng(SEED)
@@ -1857,11 +2021,17 @@ def main() -> None:
     dist_local_crossovers(dev, smi)
 
     # --- 12. the dispatcher's other paths at 1e8, and the radix kernels on u64 keys
-    launches["routes"] = route_slices(dev, zipf, smi)
+    launches["routes"], routes_oracle_s = route_slices(dev, zipf, smi)
     u64 = {"zipf": radix_passes_u64(dev, zipf, "u64 zipf", smi),
            "uniform": radix_passes_u64(dev, random_u64(dev, N_MAIN, SEED + 93), "u64 uniform",
                                        smi)}
     err = merged_err(err, u64["zipf"]["err"], u64["uniform"]["err"])
+
+    # --- 13. the reference's fixtures from the host runtime, and what the oracle cost
+    fixtures_s = oracle_fixtures(dev, smi)
+    phase("oracle", f"host oracle checks took {rst['oracle_s'] + routes_oracle_s + fixtures_s:.3f}"
+                    f" s of this run: phase 5 {rst['oracle_s']:.3f}, phase 12 "
+                    f"{routes_oracle_s:.3f}, fixtures {fixtures_s:.3f} [host: {host_cpu()}]")
 
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes

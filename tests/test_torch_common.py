@@ -145,3 +145,22 @@ def test_device_measurements_refuse_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             vt.GPUContext()
+
+
+def test_context_helpers_refuse_the_cpu(monkeypatch):
+    """``default_context()``, ``GPUContext.devices`` and ``mesh_1d`` raise
+    without a card and never fall back to the CPU."""
+    from vkradixsort_tpu_torch.engine import context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        context.GPUContext()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        context.default_context()
+    # a context made as if a card were there still finds none to mesh over
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    ctx = context.GPUContext("cuda:0")
+    for call in (lambda: ctx.devices, ctx.mesh_1d, lambda: ctx.mesh_1d(1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -261,6 +261,40 @@ def test_gpu_context(dev):
             assert merge.mergepath_smem(nplanes, tile) <= info.smem_per_block_optin
 
 
+
+def test_context_helpers_on_the_card(dev):
+    from vkradixsort_tpu_torch.engine.context import default_context
+    from vkradixsort_tpu_torch.parallel.mesh import LocalMesh
+
+    ctx = default_context()
+    assert ctx is default_context() and ctx.device == torch.device("cuda", 0)
+    assert ctx.devices == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    mesh = ctx.mesh_1d()
+    assert isinstance(mesh, LocalMesh) and mesh.devices == ctx.devices
+    assert ctx.mesh_1d(1).devices == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError):
+        ctx.mesh_1d(len(ctx.devices) + 1)
+    keys = torch.arange(8 * len(ctx.devices), 0, -1, dtype=torch.int32, device=dev)
+    assert [s.device for s in mesh.shard(keys)] == ctx.devices
+
+
+def test_native_oracle_against_the_default_route(dev):
+    """2^20 reference fixture keys (28-bit range) through ``sort_pairs`` on
+    the default route, bitwise against the host runtime's stable argsort."""
+    from vkradixsort_tpu_torch import native
+
+    assert native.available(), native._LIB_ERR
+    n = 1 << 20
+    keys = native.generate_uniform(0xBE7C, n)
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev),
+                           torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32))
+    perm = native.oracle_argsort(keys)
+    got_k = common.bits_view(ok).cpu().numpy().view(np.uint32)
+    got_v = common.bits_view(ov).cpu().numpy().view(np.uint32)
+    assert native.first_mismatch(got_k, keys[perm]) == -1
+    assert native.first_mismatch(got_v, perm) == -1
+    assert native.first_unsorted(got_k) == -1
+
 def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
     # three 4-byte payloads need more carry planes than the kernels take
     def refuse(*a, **k):

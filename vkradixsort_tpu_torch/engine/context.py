@@ -1,15 +1,21 @@
-"""GPUContext: device discovery and the limits that size the kernels.
+"""GPUContext: device discovery, meshes and the limits that size the kernels.
 
 Port of ``vkradixsort_tpu/engine/context.py``. The JAX package kept a table
 of VMEM budgets per TPU generation; here the CUDA runtime reports the limits
-of the card itself, through ``torch.cuda.get_device_properties``.
+of the card itself, through ``torch.cuda.get_device_properties``. Its 1-D
+mesh is a ``parallel.mesh.LocalMesh`` of the visible cards, one shard each;
+the JAX package's ``mesh_2d`` has no counterpart, since the port's
+distributed sort runs over one mesh axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+
+from vkradixsort_tpu_torch.parallel.mesh import LocalMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,3 +50,26 @@ class GPUContext:
             smem_per_sm=p.shared_memory_per_multiprocessor,
             l2_bytes=p.L2_cache_size,
         )
+
+    @property
+    def devices(self) -> list:
+        """Every visible card, in index order. Raises if none is visible."""
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("no CUDA device is visible")
+        return [torch.device("cuda", i) for i in range(n)]
+
+    def mesh_1d(self, num_devices: int | None = None) -> LocalMesh:
+        """A 1-D mesh over all (or the first ``num_devices``) visible cards,
+        one shard each: the counterpart of the JAX package's 1-D ``Mesh``."""
+        devs = self.devices
+        n = len(devs) if num_devices is None else num_devices
+        if not 1 <= n <= len(devs):
+            raise ValueError(f"a mesh of {n} cards needs 1 to {len(devs)} (the visible cards)")
+        return LocalMesh(devs[:n])
+
+
+@functools.lru_cache(maxsize=1)
+def default_context() -> GPUContext:
+    """The context of the current card, made once. Raises without a card."""
+    return GPUContext()
