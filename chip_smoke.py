@@ -10,7 +10,8 @@ and on ``backend="radix_tiled"`` (one of them the default route at 1e8,
 ``engine/config.ROUTE_TABLE``), the one-launch ``backend="fused"`` sort of
 a small array, ``backend="bitonic"`` and ``backend="samplesort"``, and the
 distributed sort ``parallel.distributed.sort_sharded`` over 8 logical
-shards of the card and over NCCL, and the dispatcher's other paths
+shards of the card, over NCCL and along each axis of a 2 x 4 grid of
+logical shards, and the dispatcher's other paths
 (u64 Zipf kv, argsort, ``stable=False`` kv) on their default routes. The
 1e8 sorts' outputs are also checked on the host, bitwise, against the
 port's native host runtime (``vkradixsort_tpu_torch.native``), as the JAX
@@ -106,12 +107,24 @@ package's bench checks its 1e8 sort.
      tiles and output tiles); ``dryrun_multichip(8)`` on the card; u64 Zipf
      kv at 1e7 on the merge engine (three compare planes) against numpy,
      its merge inputs checked the same way; ``GroupMesh`` on NCCL at world
-     size 1 at 1e8, exact; the tile sort and merge levels at two and three
+     size 1 at 1e8, exact, and ``GroupMesh2D((1, 1))`` along "chip" there
+     (a process group for its row and its column), bitwise equal to it;
+     the tile sort and merge levels at two and three
      compare planes on one 1.25e7 shard, bitwise against their plain
      versions and timed; and
      the crossovers behind ``ROUTE_TABLE["dist_local"]``: the local (key,
      gidx) sort with one payload through "xla" and "merge", 2^16 to 2^24
      (u32 keys) and 2^26 (u64 keys), in turns;
+11b. the distributed sort along one axis of a 2-D mesh: ``GPUContext.mesh_2d``
+     ((1, 1), and its ValueError for a card too many), then 1e8 stable u32
+     kv over ``LocalMesh2D([[cuda:0] * 4] * 2)`` along "chip" (P = 4, 2
+     replicas) and "host" (P = 2, 4 replicas) on the default local engine
+     (merge): every replica exact on the device with no overflow and
+     balance <= 1.25, every replica bitwise equal to ``sort_sharded`` over
+     ``LocalMesh([cuda:0] * P)`` (padded shards, counts, flags), tile-sort
+     and merge-path launches exactly replicas x the 1-D run's, the kernels
+     against their plain versions on the planes the 2-D run gives them,
+     device ms of the whole call beside the 1-D sort, peak memory;
  12. the dispatcher's other paths at 1e8 through the public entry points on
      their default routes, each exact on the device with its kernel
      launches counted and timed beside ``torch.sort``: stable kv of u64 Zipf
@@ -139,7 +152,8 @@ over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
 summed over the launches of one main-path run (the tile-sort and merge-path
 entries also carry their launches in the distributed sort's C = 1 merge
-run, and their ms at two and three compare planes on one shard); the
+run and along each axis of phase 11b's 2-D mesh, and their ms at two and
+three compare planes on one shard); the
 bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
 PERF.md, as text; the histogram and radix_dest entries add their 8 passes'
@@ -285,6 +299,12 @@ def check_kv(keys_in: torch.Tensor, keys_out: torch.Tensor, vals_out: torch.Tens
     tie = k[1:] == k[:-1]
     if stable and not bool((v[1:] > v[:-1])[tie].all()):
         raise AssertionError("equal keys are out of input order")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors of one dtype (torch compares no
+    unsigned tensors on the card)."""
+    return a.dtype == b.dtype and torch.equal(bits_view(a), bits_view(b))
 
 
 def check_numpy_kv(keys: np.ndarray, vals: np.ndarray, out_k, out_v, what: str) -> None:
@@ -1627,7 +1647,12 @@ def nccl_world_one(dev, smi: str) -> dict:
 
     import torch.distributed as dist
 
-    from vkradixsort_tpu_torch.parallel.distributed import GroupMesh, gather_sorted, sort_sharded
+    from vkradixsort_tpu_torch.parallel.distributed import (
+        GroupMesh,
+        GroupMesh2D,
+        gather_sorted,
+        sort_sharded,
+    )
 
     store = pathlib.Path(__file__).resolve().parent / "build" / "nccl_store"
     store.parent.mkdir(parents=True, exist_ok=True)
@@ -1642,10 +1667,25 @@ def nccl_world_one(dev, smi: str) -> dict:
             raise AssertionError("NCCL world-size-1 sort overflowed")
         out_k, out_v = gather_sorted(pk, counts, pv, mesh=mesh)
         check_kv(keys, out_k, out_v)
-        del pk, pv, out_k, out_v
+        del out_k, out_v
         ms = time_ms(lambda: sort_sharded(keys, mesh, values=values), reps=3)
         phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on GroupMesh (NCCL, world size "
                        f"1): exact stable sort on the device; {ms:.3f} ms [{smi}]")
+        # the process-group 2-D mesh: new_group for its row and its column
+        mesh2 = GroupMesh2D((1, 1), device=dev)
+        pk2, counts2, overflow2, pv2 = sort_sharded(keys, mesh2, values=values, axis_name="chip")
+        if bool(overflow2.any()):
+            raise AssertionError("NCCL 2-D mesh sort overflowed")
+        out_k, out_v = gather_sorted(pk2, counts2, pv2, mesh=mesh2, axis_name="chip")
+        check_kv(keys, out_k, out_v)
+        if not (same_bits(pk2[0], pk[0]) and same_bits(pv2[0], pv[0])
+                and torch.equal(counts2, counts)):
+            raise AssertionError("the NCCL 2-D mesh sort differs from the GroupMesh sort")
+        del pk, pv, pk2, pv2, out_k, out_v
+        phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on GroupMesh2D((1, 1)) along "
+                       "'chip' (NCCL, world size 1, a process group for its row and its "
+                       "column): exact stable sort on the device, bitwise equal to the GroupMesh "
+                       "sort")
     finally:
         dist.destroy_process_group()
     return {"ms": ms}
@@ -1684,6 +1724,123 @@ def dist_local_crossovers(dev, smi: str) -> dict:
                           f"turns: {best == 'merge'}; the table routes "
                           f"{'merge' if routed == 'merge' else 'xla'} [{smi}]")
     return out
+
+
+def distributed_2d_path(dev, smi: str) -> tuple:
+    """The distributed sort along one axis of a 2-D mesh, at the bench
+    call's size: 1e8 stable u32 kv over ``LocalMesh2D([[cuda:0] * 4] * 2)``
+    along "chip" (P = 4, 2 replicas) and along "host" (P = 2, 4 replicas),
+    on the default local engine (merge: 2.5e7 and 5e7 a shard). For each
+    axis: every replica exact on the device with no overflow and balance
+    <= 1.25, the replicas bitwise equal to each other and replica 0 to
+    ``sort_sharded`` over ``LocalMesh([cuda:0] * P)`` (padded shards, counts
+    and flags), the tile-sort and merge-path launches exactly replicas x
+    the 1-D run's, the kernels against their plain versions on the planes
+    the 2-D run gives them, device ms of the whole call beside the 1-D sort,
+    and peak memory. Also ``GPUContext.mesh_2d``. Returns ({axis:
+    launches}, stats with the kernels' errors under "err")."""
+    from vkradixsort_tpu_torch.parallel.distributed import (
+        LocalMesh,
+        LocalMesh2D,
+        gather_sorted,
+        sort_sharded,
+    )
+
+    t_phase = time.perf_counter()
+    ctx = vt.GPUContext(dev)
+    m11 = ctx.mesh_2d((1, 1))
+    if m11.devices != [[dev]] or m11.shape != {"host": 1, "chip": 1}:
+        raise AssertionError(f"mesh_2d((1, 1)) gave {m11.devices}, {m11.shape}")
+    try:
+        ctx.mesh_2d((1, 2))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("mesh_2d((1, 2)) on one card did not raise")
+    phase("slice", f"GPUContext.mesh_2d((1, 1)): shape {m11.shape} on {m11.devices}; "
+                   f"mesh_2d((1, 2)) raises ValueError: {refused}")
+
+    mesh = LocalMesh2D([[dev] * 4] * 2, ("host", "chip"))
+    keys = random_u32(dev, N_MAIN, SEED + 52)
+    values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+    launches, st = {}, {}
+    err = {"tilesort": 0, "mergepath": 0}
+    for axis in ("chip", "host"):
+        P = mesh.shape[axis]
+        reps = len(mesh.along(axis))
+        one = LocalMesh([dev] * P)
+
+        def call():
+            return sort_sharded(keys, mesh, values=values, axis_name=axis)
+
+        def call_1d():
+            return sort_sharded(keys, one, values=values)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        merge.tilesort.launches = merge.mergepath_level.launches = 0
+        pk, counts, overflow, pv = call()
+        torch.cuda.synchronize()
+        got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+        peak = torch.cuda.max_memory_allocated(dev)
+        merge.tilesort.launches = merge.mergepath_level.launches = 0
+        rk, rcounts, roverflow, rv = call_1d()
+        torch.cuda.synchronize()
+        got_1d = {"tilesort": merge.tilesort.launches,
+                  "mergepath": merge.mergepath_level.launches}
+        n_local = N_MAIN // P
+        cap = int(2.0 * n_local / P) + 64
+        lt, ll = merge_launches(n_local, 2, dev)
+        ft, fl = merge_launches(P * cap, 2, dev)
+        want_1d = {"tilesort": P * (lt + ft), "mergepath": P * (ll + fl)}
+        want = {k: reps * v for k, v in want_1d.items()}
+        if got_1d != want_1d or got != want:
+            raise AssertionError(f"2-D sort along {axis}: launches {got} (1-D {got_1d}), "
+                                 f"expected {want} ({want_1d})")
+        if len(pk) != reps * P or counts.numel() != reps * P:
+            raise AssertionError(f"2-D sort along {axis}: {len(pk)} output shards, {reps * P} "
+                                 "expected")
+        balances = []
+        for i in range(reps):
+            sl = slice(i * P, (i + 1) * P)
+            c = counts[sl].cpu().numpy()
+            balances.append(float(c.max() / c.mean()))
+            if bool(overflow[sl].any()) or balances[-1] > 1.25:
+                raise AssertionError(f"2-D sort along {axis}, replica {i}: overflow "
+                                     f"{overflow[sl].tolist()}, balance {balances[-1]:.4f}")
+            out_k, out_v = gather_sorted(pk[sl], counts[sl], pv[sl])
+            check_kv(keys, out_k, out_v)
+            del out_k, out_v
+            for d in range(P):  # bitwise equal to the 1-D sort, so to each other
+                if not (same_bits(pk[i * P + d], rk[d]) and same_bits(pv[i * P + d], rv[d])):
+                    raise AssertionError(f"2-D sort along {axis}: replica {i} shard {d} differs "
+                                         "from the 1-D sort's")
+            if not (torch.equal(counts[sl], rcounts) and torch.equal(overflow[sl], roverflow)):
+                raise AssertionError(f"2-D sort along {axis}: replica {i}'s counts or flags "
+                                     "differ from the 1-D sort's")
+        del pk, pv, rk, rv
+        phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on LocalMesh2D([[cuda:0] * 4] * 2) "
+                       f"along {axis!r} (P={P}, {reps} replicas, local engine "
+                       f"{'merge' if got['tilesort'] else 'xla'}): every replica an exact stable "
+                       f"sort on the device, no overflow, counts {counts[:P].tolist()}, balance "
+                       f"{max(balances):.4f}; every replica bitwise equal to sort_sharded over "
+                       f"LocalMesh([cuda:0] * {P}) (padded shards, counts, flags); launches {got}, "
+                       f"expected {reps} x {want_1d}; peak device memory {peak / 1e9:.3f} GB "
+                       f"({before / 1e9:.3f} GB before the call) [{smi}]")
+        err = merged_err(err, compare_captured(
+            call, f"sort_sharded n={N_MAIN} along {axis!r} of a 2 x 4 mesh, P={P}"))
+        whole = time_ms(call, reps=3)
+        ms_1d = time_ms(call_1d, reps=3)
+        launches[axis] = got
+        st[axis] = {"whole": whole, "replica": whole / reps, "1d": ms_1d, "peak_gb": peak / 1e9}
+        phase("time", f"sort_sharded n={N_MAIN} along {axis!r} of a 2 x 4 mesh (P={P}, {reps} "
+                      f"replicas): whole {whole:.3f} ms, {whole / reps:.3f} a replica; the 1-D "
+                      f"sort over LocalMesh([cuda:0] * {P}) {ms_1d:.3f} ms (CUDA events, median "
+                      f"of 3) [{smi}]")
+    st["err"] = err
+    phase("time", f"phase 11b took {time.perf_counter() - t_phase:.2f} s of host")
+    return launches, st
 
 
 def check_coranks(dev) -> None:
@@ -1900,6 +2057,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU")
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2020,6 +2178,10 @@ def main() -> None:
     err = merged_err(err, dst["err"], dsm["err"], n3["err"])
     dist_local_crossovers(dev, smi)
 
+    # --- 11b. the distributed sort along one axis of a 2-D mesh
+    dist2d_launches, d2 = distributed_2d_path(dev, smi)
+    err = merged_err(err, d2["err"])
+
     # --- 12. the dispatcher's other paths at 1e8, and the radix kernels on u64 keys
     launches["routes"], routes_oracle_s = route_slices(dev, zipf, smi)
     u64 = {"zipf": radix_passes_u64(dev, zipf, "u64 zipf", smi),
@@ -2037,6 +2199,8 @@ def main() -> None:
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
     # keys and values read and written, the base table read; 4 passes
     move_bytes = 4 * (16 * N_MAIN + 4 * NUM_BINS * nt)
+    phase("time", f"chip_smoke.py took {time.perf_counter() - t_run:.2f} s of host after its "
+                  "imports, the builds included")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "tilesort", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/tilesort.cu",
@@ -2045,6 +2209,7 @@ def main() -> None:
          "bound_ms": bound_ms(16 * N_MAIN), "bound_by": "bytes",
          "library_ms": merge_library_ms["tilesort"],
          "dist_launches": dist_launches[(1, "merge")]["tilesort"],
+         "dist2d_launches": {a: v["tilesort"] for a, v in dist2d_launches.items()},
          "shard_ms_nck2_nck3": [n3[2]["tilesort"], n3[3]["tilesort"]]},
         {"name": "mergepath", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/mergepath.cu",
          "replaces": "vkradixsort_tpu/ops/merge.py:655", "launches": launches["mergepath"],
@@ -2052,6 +2217,7 @@ def main() -> None:
          "plain_ms": plain_ms["mergepath"], "bound_ms": bound_ms(16 * N_MAIN * nlevels),
          "bound_by": "bytes", "library_ms": merge_library_ms["mergepath"],
          "dist_launches": dist_launches[(1, "merge")]["mergepath"],
+         "dist2d_launches": {a: v["mergepath"] for a, v in dist2d_launches.items()},
          "shard_ms_nck2_nck3": [n3[2]["mergepath"], n3[3]["mergepath"]]},
         {"name": "histogram", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/histogram.cu",
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],

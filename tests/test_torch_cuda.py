@@ -734,3 +734,49 @@ def test_local_mesh_on_the_card_equals_the_cpu(dev, chunks, engine, kdt):
     assert not bool(out[1][5].any())
     for a, b in zip(*out):
         assert b.device.type == "cuda" and torch.equal(a, b.cpu())
+
+
+def test_mesh_2d_on_the_card(dev):
+    from vkradixsort_tpu_torch.engine.context import default_context
+    from vkradixsort_tpu_torch.parallel.mesh import LocalMesh2D
+
+    ctx = default_context()
+    mesh = ctx.mesh_2d((1, 1))
+    assert isinstance(mesh, LocalMesh2D) and mesh.devices == [[torch.device("cuda", 0)]]
+    assert mesh.shape == {"host": 1, "chip": 1}
+    with pytest.raises(ValueError, match="needs"):
+        ctx.mesh_2d((1, len(ctx.devices) + 1))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 23])
+@pytest.mark.parametrize("axis", ["chip", "host"])
+def test_local_mesh_2d_on_the_card_equals_1d(dev, n, axis):
+    # a 2 x 4 grid of logical shards of the card, along either axis on the
+    # merge engine: every replica bitwise equal to the 1-D sort at that P
+    from vkradixsort_tpu_torch.parallel.distributed import (
+        LocalMesh,
+        LocalMesh2D,
+        gather_sorted,
+        sort_sharded,
+    )
+
+    mesh = LocalMesh2D([[dev] * 4] * 2)
+    P = mesh.shape[axis]
+    gen = torch.Generator(device=dev).manual_seed(n + P)
+    keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev,
+                         generator=gen).view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    two = sort_sharded(keys, mesh, values=vals, local_engine="merge", axis_name=axis)
+    one = sort_sharded(keys, LocalMesh([dev] * P), values=vals, local_engine="merge")
+    torch.cuda.synchronize()
+    assert len(two[0]) == 8 and not bool(two[2].any())
+    bits = common.bits_view
+    for i in range(8):
+        assert torch.equal(bits(two[0][i]), bits(one[0][i % P]))
+        assert torch.equal(two[3][i], one[3][i % P])
+        assert torch.equal(two[1][i], one[1][i % P]) and torch.equal(two[2][i], one[2][i % P])
+    got_k, got_v = gather_sorted(two[0], two[1], two[3], mesh=mesh, axis_name=axis)
+    k = bits(keys).cpu().numpy().view(np.uint32)
+    perm = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(bits(got_k).cpu().numpy().view(np.uint32), k[perm])
+    np.testing.assert_array_equal(got_v.cpu().numpy(), perm.astype(np.int32))

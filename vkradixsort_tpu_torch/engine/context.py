@@ -4,8 +4,9 @@ Port of ``vkradixsort_tpu/engine/context.py``. The JAX package kept a table
 of VMEM budgets per TPU generation; here the CUDA runtime reports the limits
 of the card itself, through ``torch.cuda.get_device_properties``. Its 1-D
 mesh is a ``parallel.mesh.LocalMesh`` of the visible cards, one shard each;
-the JAX package's ``mesh_2d`` has no counterpart, since the port's
-distributed sort runs over one mesh axis.
+its 2-D mesh a ``parallel.mesh.LocalMesh2D`` of them, reshaped row-major as
+the JAX package's ``mesh_2d`` reshapes its devices, for a sort along one of
+its two named axes.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import functools
 
 import torch
 
-from vkradixsort_tpu_torch.parallel.mesh import LocalMesh
+from vkradixsort_tpu_torch.parallel.mesh import LocalMesh, LocalMesh2D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,17 @@ class GPUContext:
         if not 1 <= n <= len(devs):
             raise ValueError(f"a mesh of {n} cards needs 1 to {len(devs)} (the visible cards)")
         return LocalMesh(devs[:n])
+
+    def mesh_2d(self, shape: tuple, axis_names: tuple = ("host", "chip")) -> LocalMesh2D:
+        """A 2-D mesh over the first R * C visible cards, one shard each,
+        reshaped row-major (host-major, chip-minor): the counterpart of the
+        JAX package's ``mesh_2d``."""
+        rows, cols = shape
+        devs = self.devices
+        n = rows * cols
+        if n > len(devs):
+            raise ValueError(f"mesh {tuple(shape)} needs {n} devices, have {len(devs)}")
+        return LocalMesh2D([devs[r * cols:(r + 1) * cols] for r in range(rows)], axis_names)
 
 
 @functools.lru_cache(maxsize=1)

@@ -27,6 +27,12 @@ a ``GroupMesh`` one shard per rank of a process group. Nothing in
 ``sort_sharded`` waits on the device: counts and overflow flags stay
 tensors. ``gather_sorted`` and ``sort_distributed`` read them on the host.
 
+On a 2-D mesh (``LocalMesh2D``, ``GroupMesh2D``) the sort runs along one
+named axis (``axis_name``) and is replicated over the other, as the JAX
+package's ``shard_map`` with ``P(axis_name)`` on a 2-D mesh is: the body
+runs unchanged over each 1-D mesh along that axis that this process holds,
+one after another, and P is the size of that axis.
+
 The local sorts run on one of two engines (``local_engine``): "xla", the
 library sort (``torch.sort``, stable, on the packed (key, gidx) or on each
 in turn, payloads gathered), or "merge", the merge engine's tile-sort and
@@ -55,9 +61,10 @@ from vkradixsort_tpu_torch.ops.common import (
     take,
 )
 from vkradixsort_tpu_torch.ops.segsort import from_signed_order, to_signed_order
-from vkradixsort_tpu_torch.parallel.mesh import GroupMesh, LocalMesh
+from vkradixsort_tpu_torch.parallel.mesh import GroupMesh, GroupMesh2D, LocalMesh, LocalMesh2D
 
-__all__ = ["sort_sharded", "gather_sorted", "sort_distributed", "LocalMesh", "GroupMesh"]
+__all__ = ["sort_sharded", "gather_sorted", "sort_distributed", "LocalMesh", "GroupMesh",
+           "LocalMesh2D", "GroupMesh2D"]
 
 LOCAL_ENGINES = ("xla", "merge")
 STEPS = ("interleave", "local sort", "splitters", "send build", "exchange", "final sort")
@@ -300,9 +307,33 @@ def _as_shards(mesh, x) -> list:
     return mesh.shard(x) if isinstance(x, torch.Tensor) else list(x)
 
 
+def _axis_meshes(mesh, axis_name) -> list:
+    """The 1-D meshes the body runs over in this process: a 1-D mesh itself
+    (``axis_name`` None), or those along ``axis_name`` of a 2-D mesh that
+    this process holds (every row or column of a ``LocalMesh2D``, this
+    rank's one of a ``GroupMesh2D``)."""
+    if isinstance(mesh, (LocalMesh, GroupMesh)):
+        if axis_name is not None:
+            raise ValueError(f"a 1-D mesh has no axis names; got axis_name={axis_name!r}")
+        return [mesh]
+    if axis_name is None:
+        raise ValueError(f"a 2-D mesh needs axis_name, one of {mesh.axis_names}")
+    lines = mesh.along(axis_name)
+    return lines if isinstance(lines, list) else [lines]
+
+
+def _payloads(shards, values) -> tuple:
+    """(several payloads?, the payloads): a list of tensors is one payload's
+    shards when the keys come as shards, else several payloads."""
+    multi = isinstance(values, tuple) or isinstance(values, list) and (
+        not values or not isinstance(values[0], torch.Tensor)
+        or isinstance(shards, torch.Tensor))
+    return multi, () if values is None else (tuple(values) if multi else (values,))
+
+
 def sort_sharded(shards, mesh, values=None, *, slack: float = 2.0, oversample: int = 32,
                  descending: bool = False, overlap_chunks: int = 1, gidx_dtype=None,
-                 local_engine: str | None = None):
+                 local_engine: str | None = None, axis_name: str | None = None):
     """Distributed stable sort over the shards of ``mesh``.
 
     ``shards``: the list of this process's shards of the keys, one per
@@ -333,16 +364,56 @@ def sort_sharded(shards, mesh, values=None, *, slack: float = 2.0, oversample: i
     int64 from there; ``gidx_dtype=torch.int64`` opts in. ``local_engine``:
     "xla" (``torch.sort``), "merge" (the merge engine's kernels) or None
     (``ROUTE_TABLE["dist_local"]``; the library sort where it has no row).
+
+    ``axis_name``: None on a 1-D mesh; on a 2-D mesh the axis to sort along
+    (required), P its size. A ``LocalMesh2D`` takes the whole 1-D tensor,
+    whose length must divide by P, cut into P shards each placed on the
+    devices of its index in every replica, or the list of its shards in the
+    output's order; a ``GroupMesh2D`` takes this rank's shard. The output
+    is replica-major: each 1-D mesh's P shards in axis order (its rows
+    along the second axis, its columns along the first), one mesh after
+    another; ``counts`` and ``overflow`` have one entry per output shard, in
+    that order. A ``GroupMesh2D`` gives this rank's one shard.
     """
+    kw = dict(slack=slack, oversample=oversample, descending=descending,
+              overlap_chunks=overlap_chunks, gidx_dtype=gidx_dtype, local_engine=local_engine)
+    meshes = _axis_meshes(mesh, axis_name)
+    if len(meshes) == 1:
+        return _sort_1d(shards, meshes[0], values, **kw)
+    # the replicas of a LocalMesh2D, one after another: where they share a
+    # card, its peak memory is one replica's working set plus the outputs
+    P = meshes[0].size
+    if not isinstance(shards, torch.Tensor) and len(shards) != len(meshes) * P:
+        raise ValueError(f"this process holds {len(meshes) * P} shards of the mesh, "
+                         f"got {len(shards)}")
+    multi, payloads = _payloads(shards, values)
+
+    def cut(x, i):
+        return meshes[i].shard(x) if isinstance(x, torch.Tensor) else list(x)[i * P:(i + 1) * P]
+
+    res = []
+    for i, m in enumerate(meshes):
+        vals = None if values is None else (
+            type(values)(cut(v, i) for v in payloads) if multi else cut(values, i))
+        res.append(_sort_1d(cut(shards, i), m, vals, **kw))
+    dev0 = res[0][1].device
+    out = ([s for r in res for s in r[0]], torch.cat([r[1].to(dev0) for r in res]),
+           torch.cat([r[2].to(dev0) for r in res]))
+    if values is None:
+        return out
+    if multi:
+        return out + (type(values)([s for r in res for s in r[3][j]]
+                                   for j in range(len(payloads))),)
+    return out + ([s for r in res for s in r[3]],)
+
+
+def _sort_1d(shards, mesh, values, *, slack, oversample, descending, overlap_chunks,
+             gidx_dtype, local_engine):
+    """:func:`sort_sharded` over one 1-D mesh."""
     if overlap_chunks < 1:
         raise ValueError(f"overlap_chunks must be >= 1, got {overlap_chunks}")
     keys = _as_shards(mesh, shards)
-    # a list of tensors is one payload's shards when the keys come as shards,
-    # else several payloads
-    multi = isinstance(values, tuple) or isinstance(values, list) and (
-        not values or not isinstance(values[0], torch.Tensor)
-        or isinstance(shards, torch.Tensor))
-    payloads = () if values is None else (tuple(values) if multi else (values,))
+    multi, payloads = _payloads(shards, values)
     pay = [_as_shards(mesh, v) for v in payloads]
     L = len(mesh.shard_ids)
     if len(keys) != L or any(len(p) != L for p in pay):
@@ -402,19 +473,29 @@ def _gathered(mesh, shards: list) -> list:
     return shards
 
 
-def gather_sorted(padded_keys, counts, padded_values=None, *, mesh=None):
+def gather_sorted(padded_keys, counts, padded_values=None, *, mesh=None,
+                  axis_name: str | None = None):
     """Strip the padding of ``sort_sharded``'s output and concatenate the
     shards: the sorted keys (and payloads, in the container of
     ``padded_values``) as one tensor on the first shard's device. Reads the
     counts on the host. With a ``GroupMesh`` (pass it as ``mesh``) every
-    rank receives the whole sorted array."""
+    rank receives the whole sorted array. With a 2-D mesh and the
+    ``axis_name`` of the sort, it strips one replica: the first of a
+    ``LocalMesh2D``; on a ``GroupMesh2D`` every rank receives its row's or
+    column's whole sorted array."""
+    if mesh is not None:
+        mesh = _axis_meshes(mesh, axis_name)[0]
+    elif axis_name is not None:
+        raise ValueError("axis_name needs the mesh the output was sorted on")
     if isinstance(mesh, GroupMesh):
         counts = mesh.all_gather([counts])[0].reshape(-1)
+    elif isinstance(mesh, LocalMesh):
+        counts = counts[:mesh.size]  # the first replica's
     cs = counts.tolist()
     dev0 = padded_keys[0].device
 
     def strip(shards):
-        shards = _gathered(mesh, shards)
+        shards = _gathered(mesh, list(shards)[:len(cs)])
         return torch.cat([bits_view(s.to(dev0))[:c] for s, c in zip(shards, cs)]).view(
             shards[0].dtype)
 
@@ -429,22 +510,27 @@ def gather_sorted(padded_keys, counts, padded_values=None, *, mesh=None):
 
 def sort_distributed(shards, mesh, values=None, *, slack: float = 2.0, oversample: int = 32,
                      descending: bool = False, overlap_chunks: int = 1, gidx_dtype=None,
-                     local_engine: str | None = None):
+                     local_engine: str | None = None, axis_name: str | None = None):
     """:func:`sort_sharded`, its overflow flags read on the host (every
-    rank's), retried with doubled ``slack`` (up to P) and ``oversample`` (up
-    to 256) until nothing overflows, then :func:`gather_sorted`. At
-    ``slack >= P`` a bucket holds a whole shard, so the loop ends. Returns
+    replica's, every rank's), retried with doubled ``slack`` (up to P) and
+    ``oversample`` (up to 256) until nothing overflows, then
+    :func:`gather_sorted`. At ``slack >= P`` a bucket holds a whole shard,
+    so the loop ends. P is the size of ``axis_name`` on a 2-D mesh. Returns
     the sorted keys, or ``(keys, values_like)``."""
-    P = mesh.size
+    P = _axis_meshes(mesh, axis_name)[0].size
     while True:
         res = sort_sharded(shards, mesh, values, slack=slack, oversample=oversample,
                            descending=descending, overlap_chunks=overlap_chunks,
-                           gidx_dtype=gidx_dtype, local_engine=local_engine)
+                           gidx_dtype=gidx_dtype, local_engine=local_engine,
+                           axis_name=axis_name)
         flags = res[2]
         if isinstance(mesh, GroupMesh):
             flags = mesh.all_gather([flags])[0]
+        elif isinstance(mesh, GroupMesh2D):  # every rank retries, or none does
+            flags = GroupMesh(device=mesh.device).all_gather([flags])[0]
         if not bool(flags.any()):
-            return gather_sorted(res[0], res[1], None if values is None else res[3], mesh=mesh)
+            return gather_sorted(res[0], res[1], None if values is None else res[3], mesh=mesh,
+                                 axis_name=axis_name)
         if slack >= P:
             raise AssertionError("overflow at slack >= P cannot happen")
         slack = min(slack * 2.0, float(P))

@@ -27,6 +27,20 @@ Two kinds of mesh:
     group rank ``order[s]``), which ``multihost.global_mesh_1d`` sets
     host-major.
 
+Two 2-D meshes, the counterparts of ``jax.sharding.Mesh`` over a 2-D grid
+of devices with two axis names: a sort runs along one named axis and is
+replicated over the other. Neither has collectives of its own;
+``along(axis_name)`` gives the 1-D meshes of that axis, and the sort's body
+runs over them unchanged:
+
+  * ``LocalMesh2D(devices_2d, axis_names)``: an R x C grid held by this
+    process (a device may repeat); along the second axis the R rows, along
+    the first the C columns, each a ``LocalMesh``;
+  * ``GroupMesh2D(shape, axis_names, device, order)``: one position per rank
+    of the default group, position (r, c) on rank ``order[r * C + c]``; one
+    process group per row and per column, and ``along`` gives this rank's
+    row or column as a ``GroupMesh``.
+
 Collectives move same-width views the backends take (gloo refuses unsigned
 ints and int16): 1-byte as int8, 2-byte as float16, 4-byte as int32, 8-byte
 as int64. They copy bits and compute nothing, so every dtype arrives intact.
@@ -131,3 +145,94 @@ class GroupMesh:
         if self._by_shard is not None:
             out = out[self._by_shard]
         return [out.view(x.dtype)]
+
+
+def _axes(axis_names, shape) -> dict:
+    names = tuple(axis_names)
+    if len(names) != 2 or names[0] == names[1]:
+        raise ValueError(f"a 2-D mesh needs two distinct axis names, got {axis_names}")
+    return dict(zip(names, shape))
+
+
+class _Mesh2D:
+    """What both 2-D meshes share: ``axis_names`` and ``shape``, a
+    ``{name: size}`` dict as JAX's ``mesh.shape`` is."""
+
+    axis_names: tuple
+    shape: dict
+
+    def axis(self, axis_name) -> int:
+        """The index (0 or 1) of ``axis_name``; a name the mesh lacks raises."""
+        if axis_name not in self.axis_names:
+            raise ValueError(f"axis_name {axis_name!r} is not an axis of this mesh; its axes "
+                             f"are {self.axis_names}")
+        return self.axis_names.index(axis_name)
+
+
+class LocalMesh2D(_Mesh2D):
+    """An R x C grid of devices held by this process, with two axis names
+    (default ``("host", "chip")``, as JAX's ``mesh_2d``); a device may
+    repeat, so R * C logical shards can sit on one card."""
+
+    def __init__(self, devices_2d, axis_names=("host", "chip")):
+        self.devices = [[torch.device(d) for d in row] for row in devices_2d]
+        rows, cols = len(self.devices), len(self.devices[0]) if self.devices else 0
+        if not cols or any(len(row) != cols for row in self.devices):
+            raise ValueError("a 2-D mesh needs a non-empty rectangular grid of devices")
+        self.shape = _axes(axis_names, (rows, cols))
+        self.axis_names = tuple(self.shape)
+
+    def along(self, axis_name) -> list:
+        """The 1-D meshes along ``axis_name``, in order of the other axis's
+        index: the R rows along the second axis, the C columns along the
+        first, each a ``LocalMesh``."""
+        if self.axis(axis_name) == 1:
+            return [LocalMesh(row) for row in self.devices]
+        return [LocalMesh(list(col)) for col in zip(*self.devices)]
+
+
+class GroupMesh2D(_Mesh2D):
+    """One position of an R x C grid per rank of the default process group:
+    position (r, c) on rank ``order[r * C + c]`` (default: rank r * C + c),
+    this rank's shards on ``device`` (default: the current CUDA device).
+
+    Every rank builds one process group per row and then one per column, in
+    that order (``torch.distributed.new_group`` must be called by every rank
+    of the default group, in the same order, for every group), so every rank
+    must build the mesh, with the same shape and order."""
+
+    def __init__(self, shape, axis_names=("host", "chip"), device=None, order=None):
+        import torch.distributed as dist
+
+        rows, cols = (int(x) for x in shape)
+        self.shape = _axes(axis_names, (rows, cols))
+        self.axis_names = tuple(self.shape)
+        world = dist.get_world_size()
+        if rows * cols != world:
+            raise ValueError(f"a {rows} x {cols} mesh needs {rows * cols} ranks, the default "
+                             f"group has {world}")
+        self.order = list(range(world)) if order is None else [int(r) for r in order]
+        if sorted(self.order) != list(range(world)):
+            raise ValueError(f"order must be a permutation of the ranks, got {order}")
+        if device is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = torch.device(device)
+        pos = self.order.index(dist.get_rank())
+        self.position = (pos // cols, pos % cols)
+        grid = [self.order[r * cols:(r + 1) * cols] for r in range(rows)]
+        lines = grid + [list(col) for col in zip(*grid)]  # the rows, then the columns
+        mine = {}
+        for i, ranks in enumerate(lines):  # the same calls, in the same order, on every rank
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                # shard s of the line sits on its group rank of global rank ranks[s]
+                mine[1 if i < rows else 0] = (group, [dist.get_group_rank(group, r)
+                                                      for r in ranks])
+        self._lines = mine
+
+    def along(self, axis_name) -> GroupMesh:
+        """This rank's row (along the second axis) or column (along the
+        first) as a ``GroupMesh``: its subgroup, shard s on the rank at
+        index s of the line."""
+        group, order = self._lines[self.axis(axis_name)]
+        return GroupMesh(group, device=self.device, order=order)

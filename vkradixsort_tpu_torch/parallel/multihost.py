@@ -8,7 +8,10 @@ processes); this module only
     no-op without a launcher's environment or arguments),
   * builds the 1-D mesh over every rank, host-major, so that the bulk of
     ``sort_sharded``'s all-to-all stays between the cards of one host
-    (``global_mesh_1d``),
+    (``global_mesh_1d``), and the 2-D mesh over every rank in that order,
+    row by row, as the JAX package's ``mesh_2d`` lays out its devices
+    (``global_mesh_2d``: with a row per host, a sort along its second
+    axis stays on one host),
   * puts this rank's shard on its device (``global_array_from_host_data``).
 
 ``parallel.distributed.sort_sharded`` then runs over that mesh unchanged.
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from vkradixsort_tpu_torch.parallel.mesh import GroupMesh
+from vkradixsort_tpu_torch.parallel.mesh import GroupMesh, GroupMesh2D
 
 
 def ensure_initialized(init_method: str | None = None, world_size: int | None = None,
@@ -52,6 +55,20 @@ def global_mesh_1d(device=None) -> GroupMesh:
     the hosts in the order of their lowest rank, the ranks of one host by
     their local rank (``LOCAL_RANK``, else the current CUDA device, else 0).
     ``device``: this rank's device (default: the current CUDA device)."""
+    return GroupMesh(device=device, order=_host_major_order())
+
+
+def global_mesh_2d(shape, axis_names=("host", "chip"), device=None) -> GroupMesh2D:
+    """A ``GroupMesh2D`` of ``shape`` (R x C, R * C ranks) over every rank of
+    the default group, its positions filled row by row in
+    :func:`global_mesh_1d`'s host-major order: DCN-major, ICI-minor, as the
+    JAX package's ``mesh_2d``. Every rank must call it, with the same
+    arguments: it makes a process group per row and per column."""
+    return GroupMesh2D(shape, axis_names, device=device, order=_host_major_order())
+
+
+def _host_major_order() -> list:
+    """Every rank of the default group, host-major (an all-gather)."""
     local = os.environ.get("LOCAL_RANK")
     if local is None:
         local = torch.cuda.current_device() if torch.cuda.is_available() else 0
@@ -61,8 +78,7 @@ def global_mesh_1d(device=None) -> GroupMesh:
     first = {}
     for host, _, r in everyone:
         first[host] = min(first.get(host, r), r)
-    order = [r for host, lr, r in sorted(everyone, key=lambda e: (first[e[0]], e[1], e[2]))]
-    return GroupMesh(device=device, order=order)
+    return [r for host, lr, r in sorted(everyone, key=lambda e: (first[e[0]], e[1], e[2]))]
 
 
 def global_array_from_host_data(local_data, mesh: GroupMesh) -> torch.Tensor:
