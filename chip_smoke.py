@@ -33,6 +33,12 @@ package's bench checks its 1e8 sort.
   4. the merge path: sort 1e6 pairs exactly against numpy's stable argsort,
      then 1e8 pairs with an exact check on the device, counting each
      kernel's launches;
+ 4b. the merge path past the kernels' two carry planes: 1e8 u32 keys with
+     a float32 and a u64 payload, and with three int32 payloads (a local
+     index through the kernels, then a gather a payload), keys on the host
+     whole and in 16 windows and every payload on the device, bitwise
+     against the host runtime's stable argsort, tile-sort and merge-path
+     launches counted, timed in turns against ``backend="tiled"``;
   5. the radix_tiled path: the same at 1e6 and 1e8 (4 histogram and 4
      rank-and-scatter launches, no destination-only launch); the 1e8
      sort's whole output on the host, bitwise against the host runtime's
@@ -44,7 +50,9 @@ package's bench checks its 1e8 sort.
      scatter, no dtype conversion), each pass's histogram kernel and both
      modes of the rank-and-scatter kernel held bitwise against their plain
      versions on that sort's own intermediate keys and timed beside them
-     (histogram, scan, rank-and-scatter, per pass), the peak device memory
+     (histogram, scan, rank-and-scatter, per pass), with the pass's library
+     answer (a stable ``torch.sort`` of its 8-bit digit and the gathers of
+     keys and values) bitwise equal to it and timed, the peak device memory
      of the sort, and the chunk swept (2048 to 16384: the kernels by pass
      and the whole sort in turns, results bitwise equal);
   6. the fused path at N = 32768: u32 pairs, then u64 keys with a u64
@@ -124,7 +132,10 @@ package's bench checks its 1e8 sort.
      ``LocalMesh([cuda:0] * P)`` (padded shards, counts, flags), tile-sort
      and merge-path launches exactly replicas x the 1-D run's, the kernels
      against their plain versions on the planes the 2-D run gives them,
-     device ms of the whole call beside the 1-D sort, peak memory;
+     device ms of the whole call beside the 1-D sort, peak memory; counts
+     and flags of one replica's shape, (P,), and ``gather_sorted`` without
+     ``mesh=`` bitwise equal to the ``mesh=`` form and to the host
+     runtime's stable argsort;
  12. the dispatcher's other paths at 1e8 through the public entry points on
      their default routes, each exact on the device with its kernel
      launches counted and timed beside ``torch.sort``: stable kv of u64 Zipf
@@ -152,8 +163,9 @@ over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
 summed over the launches of one main-path run (the tile-sort and merge-path
 entries also carry their launches in the distributed sort's C = 1 merge
-run and along each axis of phase 11b's 2-D mesh, and their ms at two and
-three compare planes on one shard); the
+run, along each axis of phase 11b's 2-D mesh and in phase 4b's wide
+payload sorts, and their ms at two and three compare planes on one
+shard); the
 bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
 PERF.md, as text; the histogram and radix_dest entries add their 8 passes'
@@ -195,6 +207,7 @@ from vkradixsort_tpu_torch.ops.common import (
     bits_view,
     cdiv,
     extract_digit,
+    take,
 )
 from vkradixsort_tpu_torch.utils.fixtures import make_keys
 from vkradixsort_tpu_torch.utils.timing import measure_seconds_per_call
@@ -447,6 +460,62 @@ def oracle_fixtures(dev, smi: str) -> float:
     return time.perf_counter() - t0
 
 
+def merge_wide_payloads(dev, smi: str) -> dict:
+    """The merge path with payload sets past the kernels' two carry planes,
+    at the bench size: ``sort_pairs(keys_u32, payloads, backend="merge")``
+    with a float32 and a u64 payload (the JAX package's
+    ``tests/test_merge.py`` set) and with three int32 payloads, each a local
+    index through one tile sort and the merge levels, then a gather a
+    payload. Each launches the tile-sort and merge-path kernels as a kv sort
+    does (``counted``); its keys on the host, whole and in bench.py's
+    windows, and every payload on the device, bitwise against the host
+    runtime's stable argsort of the keys; timed in turns against
+    ``backend="tiled"`` on the same call. Returns {set: launches}."""
+    t_phase = time.perf_counter()
+    n = N_MAIN
+    keys = random_u32(dev, n, SEED + 41)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    cases = {
+        "float32 + u64": (torch.randn(n, generator=gen, device=dev),
+                          random_u64(dev, n, SEED + 43)),
+        "3 x int32": tuple(random_u32(dev, n, SEED + 44 + i).view(torch.int32)
+                           for i in range(3)),
+    }
+    t0 = time.perf_counter()
+    keys_h = host_bits(keys)
+    perm = native.oracle_argsort(keys_h)
+    want_k = keys_h[perm]
+    perm_dev = torch.from_numpy(perm.view(np.int32)).to(dev).to(torch.int64)
+    oracle_s = time.perf_counter() - t0
+    want_launches = expected_launches("merge", n, False, dev)
+    launches = {}
+    for name, vals in cases.items():
+        what = f"sort_pairs n={n} u32 keys, {name} payloads, backend=merge"
+        (out_k, out_v), got = counted(lambda: vt.sort_pairs(keys, vals, backend="merge"))
+        if got != want_launches:
+            raise AssertionError(f"{what}: launches {got}, expected {want_launches}")
+        t0 = time.perf_counter()
+        got_k = host_bits(out_k)
+        require_equal(f"{what}, keys", got_k, want_k)
+        oracle_windows(what, got_k, want_k)
+        oracle_s += time.perf_counter() - t0
+        for j, (o, v) in enumerate(zip(out_v, vals)):
+            if not same_bits(o, take(v, perm_dev)):
+                raise AssertionError(f"{what}: payload {j} differs from the oracle's order")
+        del out_k, out_v, got_k
+        t = turns({"merge": lambda k: vt.sort_pairs(k, vals, backend="merge"),
+                   "tiled": lambda k: vt.sort_pairs(k, vals, backend="tiled")}, keys, fresh=True)
+        launches[name] = got
+        phase("slice", f"{what}: keys whole and in {ORACLE_WINDOWS} windows, every payload "
+                       f"whole, bitwise against the host runtime's stable argsort; launches "
+                       f"{got}; merge {' / '.join(f'{x:.3f}' for x in t['merge'])} ms, tiled "
+                       f"{' / '.join(f'{x:.3f}' for x in t['tiled'])} ms (in turns, fresh "
+                       f"remixes) [{smi}]")
+    phase("time", f"phase 4b took {time.perf_counter() - t_phase:.2f} s of host, "
+                  f"{oracle_s:.3f} of it the oracle and the key checks")
+    return launches
+
+
 def radix_keys(rng, n: int, dtype, kind: str) -> np.ndarray:
     """Keys for the radix kernels: "ties" (13 values, every byte alike),
     "max" (a fifth equal to the dtype's maximum) or "uniform"."""
@@ -608,8 +677,10 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     rank-and-scatter kernel bitwise against their plain versions on the
     pass's own keys and timed beside them, with the scan, ``torch.bincount``
     over the precomputed composite index as the histogram's library
-    yardstick, and the former int64 scan; then the chunk sweep. Returns
-    (launches, stats)."""
+    yardstick, a stable ``torch.sort`` of the pass's 8-bit digit (int16,
+    built outside the timed window) and the gathers of keys and values as
+    the rank-and-scatter pass's (bitwise its output), and the former int64
+    scan; then the chunk sweep. Returns (launches, stats)."""
     small = rng.integers(0, 1 << 32, size=N_SMALL, dtype=np.uint32)
     sk, sv = vt.sort_pairs(torch.from_numpy(small).to(dev),
                            torch.arange(N_SMALL, dtype=torch.int32, device=dev).view(torch.uint32),
@@ -646,8 +717,8 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     tile = vt.SortConfig().chunk
     nt = cdiv(N_MAIN, tile)
     st = {k: 0.0 for k in ("histogram", "histogram_plain", "histogram_library", "scan",
-                           "scan_int64", "radix_scatter", "radix_scatter_plain", "radix_dest",
-                           "radix_dest_plain")}
+                           "scan_int64", "radix_scatter", "radix_scatter_plain",
+                           "radix_scatter_library", "radix_dest", "radix_dest_plain")}
     err = {"histogram": 0, "radix_dest": 0}
     cur_k, cur_v = keys, values
     for shift in range(0, 32, 8):
@@ -664,16 +735,28 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
         e_move = max_abs_err(list(nxt), list(radix_tiled.tile_scatter_plain(cur_k, cur_v, shift,
                                                                             tile, base)))
         err["radix_dest"] = max(err["radix_dest"], e_dest, e_move)
+        digit = extract_digit(cur_k, shift).to(torch.int16)
+
+        def library_pass():
+            perm = torch.sort(digit, stable=True).indices
+            return take(cur_k, perm), take(cur_v, perm)
+
+        if not all(same_bits(a, b) for a, b in zip(library_pass(), nxt)):
+            raise AssertionError(f"the stable torch.sort of the digit at shift {shift} and its "
+                                 "gathers disagree with the rank-and-scatter pass")
         pass_ms = {
             "histogram": time_ms(lambda: histogram.tile_histograms(cur_k, shift, tile)),
             "scan": time_ms(lambda: reference.exclusive_bin_offsets(hist)),
             "radix_scatter": time_ms(
-                lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base))}
+                lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, tile, base)),
+            "radix_scatter_library": time_ms(library_pass)}
         for k, v in pass_ms.items():
             st[k] += v
         phase("time", f"n={N_MAIN} chunk {tile} radix pass at shift {shift}: histogram "
                       f"{pass_ms['histogram']:.4f} ms, scan {pass_ms['scan']:.4f} ms, "
-                      f"rank-and-scatter {pass_ms['radix_scatter']:.4f} ms [{smi}]")
+                      f"rank-and-scatter {pass_ms['radix_scatter']:.4f} ms (library: stable "
+                      f"torch.sort of the int16 digit + 2 gathers "
+                      f"{pass_ms['radix_scatter_library']:.4f} ms, bitwise equal) [{smi}]")
         st["scan_int64"] += time_ms(lambda: scan_int64(hist))
         st["radix_dest"] += time_ms(lambda: radix_tiled.tile_destinations(cur_k, shift, tile, base))
         st["histogram_plain"] += time_ms(
@@ -686,7 +769,7 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
                                                                                          shift)
         st["histogram_library"] += time_ms(
             lambda: torch.bincount(composite, minlength=nt * NUM_BINS))
-        del composite, dest, base, hist
+        del composite, dest, base, hist, digit
         cur_k, cur_v = nxt
     check_kv(keys, cur_k, cur_v)
     phase("compare", f"n={N_MAIN} chunk={tile}, the 4 passes of the radix_tiled sort on their own "
@@ -699,7 +782,8 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
                   f"{st['histogram']:.3f} ms (plain {st['histogram_plain']:.3f}, bincount "
                   f"{st['histogram_library']:.3f}); scan {st['scan']:.3f} ms (int64 form "
                   f"{st['scan_int64']:.3f}); rank-and-scatter {st['radix_scatter']:.3f} ms (plain "
-                  f"{st['radix_scatter_plain']:.3f}); destination mode {st['radix_dest']:.3f} ms "
+                  f"{st['radix_scatter_plain']:.3f}, stable torch.sort of the digit + gathers "
+                  f"{st['radix_scatter_library']:.3f}); destination mode {st['radix_dest']:.3f} ms "
                   f"(plain {st['radix_dest_plain']:.3f}); replaced: destinations 3.397 + widening "
                   f"1.740 + torch scatter 16.161 ms [{smi}]")
     del cur_k, cur_v
@@ -1737,8 +1821,10 @@ def distributed_2d_path(dev, smi: str) -> tuple:
     and flags), the tile-sort and merge-path launches exactly replicas x
     the 1-D run's, the kernels against their plain versions on the planes
     the 2-D run gives them, device ms of the whole call beside the 1-D sort,
-    and peak memory. Also ``GPUContext.mesh_2d``. Returns ({axis:
-    launches}, stats with the kernels' errors under "err")."""
+    and peak memory; counts and flags of shape (P,), and ``gather_sorted``
+    without ``mesh=`` bitwise equal to the ``mesh=`` form and, on the host,
+    to the host runtime's stable argsort. Also ``GPUContext.mesh_2d``.
+    Returns ({axis: launches}, stats with the kernels' errors under "err")."""
     from vkradixsort_tpu_torch.parallel.distributed import (
         LocalMesh,
         LocalMesh2D,
@@ -1763,6 +1849,11 @@ def distributed_2d_path(dev, smi: str) -> tuple:
     mesh = LocalMesh2D([[dev] * 4] * 2, ("host", "chip"))
     keys = random_u32(dev, N_MAIN, SEED + 52)
     values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
+    t0 = time.perf_counter()
+    keys_h = host_bits(keys)
+    perm = native.oracle_argsort(keys_h)
+    want_k = keys_h[perm]
+    oracle_s = time.perf_counter() - t0
     launches, st = {}, {}
     err = {"tilesort": 0, "mergepath": 0}
     for axis in ("chip", "host"):
@@ -1798,34 +1889,48 @@ def distributed_2d_path(dev, smi: str) -> tuple:
         if got_1d != want_1d or got != want:
             raise AssertionError(f"2-D sort along {axis}: launches {got} (1-D {got_1d}), "
                                  f"expected {want} ({want_1d})")
-        if len(pk) != reps * P or counts.numel() != reps * P:
-            raise AssertionError(f"2-D sort along {axis}: {len(pk)} output shards, {reps * P} "
-                                 "expected")
-        balances = []
+        if len(pk) != reps * P or counts.shape != (P,) or overflow.shape != (P,):
+            raise AssertionError(f"2-D sort along {axis}: {len(pk)} output shards and counts "
+                                 f"of shape {tuple(counts.shape)}; {reps * P} and ({P},) expected")
+        c = counts.cpu().numpy()
+        balance = float(c.max() / c.mean())
+        if bool(overflow.any()) or balance > 1.25:
+            raise AssertionError(f"2-D sort along {axis}: overflow {overflow.tolist()} (any "
+                                 f"replica), balance {balance:.4f}")
+        if not (torch.equal(counts, rcounts) and torch.equal(overflow, roverflow)):
+            raise AssertionError(f"2-D sort along {axis}: counts or flags differ from the 1-D "
+                                 "sort's")
         for i in range(reps):
             sl = slice(i * P, (i + 1) * P)
-            c = counts[sl].cpu().numpy()
-            balances.append(float(c.max() / c.mean()))
-            if bool(overflow[sl].any()) or balances[-1] > 1.25:
-                raise AssertionError(f"2-D sort along {axis}, replica {i}: overflow "
-                                     f"{overflow[sl].tolist()}, balance {balances[-1]:.4f}")
-            out_k, out_v = gather_sorted(pk[sl], counts[sl], pv[sl])
+            out_k, out_v = gather_sorted(pk[sl], counts, pv[sl])
             check_kv(keys, out_k, out_v)
             del out_k, out_v
             for d in range(P):  # bitwise equal to the 1-D sort, so to each other
                 if not (same_bits(pk[i * P + d], rk[d]) and same_bits(pv[i * P + d], rv[d])):
                     raise AssertionError(f"2-D sort along {axis}: replica {i} shard {d} differs "
                                          "from the 1-D sort's")
-            if not (torch.equal(counts[sl], rcounts) and torch.equal(overflow[sl], roverflow)):
-                raise AssertionError(f"2-D sort along {axis}: replica {i}'s counts or flags "
-                                     "differ from the 1-D sort's")
-        del pk, pv, rk, rv
+        # without mesh=: the counts' shape strips one replica, as mesh= does
+        out_k, out_v = gather_sorted(pk, counts, pv)
+        mesh_k, mesh_v = gather_sorted(pk, counts, pv, mesh=mesh, axis_name=axis)
+        if not (out_k.shape == (N_MAIN,) and same_bits(out_k, mesh_k)
+                and same_bits(out_v, mesh_v)):
+            raise AssertionError(f"2-D sort along {axis}: gather_sorted without mesh= differs "
+                                 "from the mesh= form")
+        del mesh_k, mesh_v
+        t0 = time.perf_counter()
+        what = f"gather_sorted without mesh= along {axis!r}"
+        require_equal(f"{what}, keys", host_bits(out_k), want_k)
+        require_equal(f"{what}, values", host_bits(out_v), perm)
+        oracle_s += time.perf_counter() - t0
+        del out_k, out_v, pk, pv, rk, rv
         phase("slice", f"sort_sharded n={N_MAIN} stable u32 kv on LocalMesh2D([[cuda:0] * 4] * 2) "
                        f"along {axis!r} (P={P}, {reps} replicas, local engine "
                        f"{'merge' if got['tilesort'] else 'xla'}): every replica an exact stable "
-                       f"sort on the device, no overflow, counts {counts[:P].tolist()}, balance "
-                       f"{max(balances):.4f}; every replica bitwise equal to sort_sharded over "
-                       f"LocalMesh([cuda:0] * {P}) (padded shards, counts, flags); launches {got}, "
+                       f"sort on the device, no overflow, counts {counts.tolist()}, balance "
+                       f"{balance:.4f}; every replica bitwise equal to sort_sharded over "
+                       f"LocalMesh([cuda:0] * {P}) (padded shards, counts, flags); gather_sorted "
+                       f"without mesh= bitwise equal to the mesh= form and to the host runtime's "
+                       f"stable argsort; launches {got}, "
                        f"expected {reps} x {want_1d}; peak device memory {peak / 1e9:.3f} GB "
                        f"({before / 1e9:.3f} GB before the call) [{smi}]")
         err = merged_err(err, compare_captured(
@@ -1839,7 +1944,8 @@ def distributed_2d_path(dev, smi: str) -> tuple:
                       f"sort over LocalMesh([cuda:0] * {P}) {ms_1d:.3f} ms (CUDA events, median "
                       f"of 3) [{smi}]")
     st["err"] = err
-    phase("time", f"phase 11b took {time.perf_counter() - t_phase:.2f} s of host")
+    phase("time", f"phase 11b took {time.perf_counter() - t_phase:.2f} s of host, "
+                  f"{oracle_s:.3f} of it the host oracle and its checks")
     return launches, st
 
 
@@ -2140,6 +2246,9 @@ def main() -> None:
         raise AssertionError(f"the main path did not run through the kernels: {launches}")
     del out_k, out_v, keys, values
 
+    # --- 4b. the merge path with payload sets past the kernels' two carry planes
+    wide_launches = merge_wide_payloads(dev, smi)
+
     # --- 5. and 6. the radix_tiled and fused paths
     radix_launches, rst = radix_main_path(dev, rng, smi)
     launches.update(radix_launches)
@@ -2210,6 +2319,7 @@ def main() -> None:
          "library_ms": merge_library_ms["tilesort"],
          "dist_launches": dist_launches[(1, "merge")]["tilesort"],
          "dist2d_launches": {a: v["tilesort"] for a, v in dist2d_launches.items()},
+         "wide_payload_launches": {k: v["tilesort"] for k, v in wide_launches.items()},
          "shard_ms_nck2_nck3": [n3[2]["tilesort"], n3[3]["tilesort"]]},
         {"name": "mergepath", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/mergepath.cu",
          "replaces": "vkradixsort_tpu/ops/merge.py:655", "launches": launches["mergepath"],
@@ -2218,6 +2328,7 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": merge_library_ms["mergepath"],
          "dist_launches": dist_launches[(1, "merge")]["mergepath"],
          "dist2d_launches": {a: v["mergepath"] for a, v in dist2d_launches.items()},
+         "wide_payload_launches": {k: v["mergepath"] for k, v in wide_launches.items()},
          "shard_ms_nck2_nck3": [n3[2]["mergepath"], n3[3]["mergepath"]]},
         {"name": "histogram", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/histogram.cu",
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],
@@ -2232,7 +2343,8 @@ def main() -> None:
          "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86",
          "launches": launches["radix_scatter"], "max_abs_err": err["radix_dest"],
          "ms": rst["radix_scatter"], "plain_ms": rst["radix_scatter_plain"],
-         "bound_ms": bound_ms(move_bytes), "bound_by": "bytes", "library_ms": None,
+         "bound_ms": bound_ms(move_bytes), "bound_by": "bytes",
+         "library_ms": rst["radix_scatter_library"],
          "pr5": "3.397 ms dest + 1.740 widen + 16.161 torch scatter",
          "u64_zipf_1e8_ms": sum(u64["zipf"]["radix_dest"]),
          "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["radix_dest_bound"],

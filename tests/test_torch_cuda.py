@@ -774,9 +774,67 @@ def test_local_mesh_2d_on_the_card_equals_1d(dev, n, axis):
     for i in range(8):
         assert torch.equal(bits(two[0][i]), bits(one[0][i % P]))
         assert torch.equal(two[3][i], one[3][i % P])
-        assert torch.equal(two[1][i], one[1][i % P]) and torch.equal(two[2][i], one[2][i % P])
+    # counts and flags: one replica's, JAX's global shape (P,)
+    assert torch.equal(two[1], one[1]) and torch.equal(two[2], one[2])
     got_k, got_v = gather_sorted(two[0], two[1], two[3], mesh=mesh, axis_name=axis)
     k = bits(keys).cpu().numpy().view(np.uint32)
     perm = np.argsort(k, kind="stable")
     np.testing.assert_array_equal(bits(got_k).cpu().numpy().view(np.uint32), k[perm])
     np.testing.assert_array_equal(got_v.cpu().numpy(), perm.astype(np.int32))
+
+
+@pytest.mark.parametrize("axis", ["chip", "host"])
+def test_local_mesh_2d_gather_without_mesh_on_the_card(dev, axis):
+    # gather_sorted without mesh= strips one replica, as the mesh= form does
+    from vkradixsort_tpu_torch.parallel.distributed import (
+        LocalMesh2D,
+        gather_sorted,
+        sort_sharded,
+    )
+
+    n = (1 << 20) + 8
+    mesh = LocalMesh2D([[dev] * 4] * 2)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev,
+                         generator=gen).view(torch.uint32)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev),
+            torch.randn(n, dtype=torch.float64, device=dev))
+    pk, counts, overflow, pv = sort_sharded(keys, mesh, values=vals, axis_name=axis)
+    assert counts.shape == overflow.shape == (mesh.shape[axis],)
+    got_k, got_v = gather_sorted(pk, counts, pv)
+    want_k, want_v = gather_sorted(pk, counts, pv, mesh=mesh, axis_name=axis)
+    bits = common.bits_view
+    assert got_k.shape == (n,) and torch.equal(bits(got_k), bits(want_k))
+    for g, w in zip(got_v, want_v):
+        assert torch.equal(bits(g), bits(w))
+    ck, (cv, _) = vt.sort_pairs(keys.cpu(), [v.cpu() for v in vals], backend="tiled")
+    assert torch.equal(bits(got_k).cpu(), bits(ck)) and torch.equal(got_v[0].cpu(), cv)
+
+
+WIDE_PAYLOADS = [(np.uint32, (np.float32, np.uint64)), (np.uint32, (np.int32,) * 3),
+                 (np.uint32, (np.float64, np.float64)), (np.uint64, (np.uint64, np.int32))]
+
+
+@pytest.mark.parametrize("key_dtype,payloads", WIDE_PAYLOADS)
+@pytest.mark.parametrize("n", [4 * 16384, 3 * 16384 + 4097])
+def test_wide_payload_merge_on_the_card_equals_plain(dev, key_dtype, payloads, n):
+    # more than two carry planes: one local index rides through the kernels
+    # and each payload is gathered; bitwise the plain path's result, both
+    # directions, and both kernels ran
+    rng = np.random.default_rng(n + len(payloads))
+    keys = rng.integers(0, 64, size=n).astype(key_dtype)
+    keys[rng.random(n) < 0.1] = np.iinfo(key_dtype).max
+    vals = [torch.from_numpy(rng.integers(0, 1 << 62, size=n).astype(d)) for d in payloads]
+    ck = torch.from_numpy(keys)
+    for descending in (False, True):
+        before = (merge.tilesort.launches, merge.mergepath_level.launches)
+        gk, gv = vt.sort_pairs(ck.to(dev), [v.to(dev) for v in vals], backend="merge",
+                               descending=descending)
+        torch.cuda.synchronize()
+        assert merge.tilesort.launches == before[0] + 1
+        assert merge.mergepath_level.launches == before[1] + 2
+        pk, pvs = vt.sort_pairs(ck, vals, backend="merge", descending=descending)
+        assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(pk))
+        for g, p in zip(gv, pvs):
+            assert g.dtype == p.dtype and torch.equal(common.bits_view(g).cpu(),
+                                                      common.bits_view(p))

@@ -2,10 +2,10 @@
 wrappers run the kernels' plain versions, held against the JAX engine.
 
 Tolerance: exact (bitwise). A stable sort has one right answer and the
-split points are integers. The one call of the JAX engine in Pallas
-interpret mode (about 12 s on one core) runs once, in a module-scoped
-fixture; every other case is held against the JAX library path
-(``backend="tiled"``).
+split points are integers. The two calls of the JAX engine in Pallas
+interpret mode (about 12 s and 8 s on one core) run once each, in
+module-scoped fixtures; every other case is held against the JAX library
+path (``backend="tiled"``).
 """
 
 import jax.numpy as jnp
@@ -17,6 +17,7 @@ import vkradixsort_tpu as vk
 from vkradixsort_tpu.ops import merge as jmerge
 import vkradixsort_tpu_torch as vt
 from vkradixsort_tpu_torch.ops import merge
+from vkradixsort_tpu_torch.parallel import distributed
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -176,6 +177,12 @@ def test_any_grain_matches_jax_engine(jax_engine_u64_kv, tile):
         (3 * T + 1, np.uint64, (np.uint32,)),
         (3 * T + 1, np.uint32, (np.float64,)),
         (3 * T + 1, np.uint64, (np.float64,)),  # two key and two carry planes
+        # past the kernels' two carry planes: one local index, then gathers
+        (3 * T + 1, np.uint32, (np.int32, np.int32, np.int32)),
+        (3 * T + 1, np.uint32, (np.float64, np.float64)),
+        (3 * T + 1, np.uint64, (np.uint64, np.int32)),
+        (0, np.uint32, (np.int32, np.int32, np.int32)),
+        (1, np.uint64, (np.float64, np.float64)),
     ],
 )
 def test_sort_merge_matches_jax_tiled(rng, n, key_dtype, payloads):
@@ -194,6 +201,99 @@ def test_sort_merge_matches_jax_tiled(rng, n, key_dtype, payloads):
     np.testing.assert_array_equal(out_k.numpy(), np.asarray(jk))
     for o, j in zip(out_v, jv):
         np.testing.assert_array_equal(o.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("key_dtype,payloads", [(np.uint32, (np.float32, np.uint64)),
+                                                (np.uint32, (np.int32, np.int32, np.int32)),
+                                                (np.uint64, (np.float64, np.float64)),
+                                                (np.uint64, (np.uint32,))])
+def test_wide_payload_sets_descending_match_jax_tiled(rng, key_dtype, payloads):
+    # the public entry on the merge engine, descending, ragged: the payload
+    # sets past two carry planes (a local index and a gather each) and one
+    # that rides through the kernels, as JAX's tiled sort orders them
+    n = 3 * T + 5
+    keys = rng.integers(0, 8, size=n).astype(key_dtype)
+    keys[rng.random(n) < 0.2] = np.iinfo(key_dtype).max
+    vals = [rng.integers(0, 1 << 30, size=n).astype(d) for d in payloads]
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals),
+                           backend="merge", descending=True, config=vt.SortConfig(tile=T))
+    jk, jv = vk.sort_pairs(jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals),
+                           backend="tiled", descending=True)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jk))
+    assert len(ov) == len(vals)
+    for o, j in zip(ov, jv):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(j))
+
+
+@pytest.fixture(scope="module")
+def jax_engine_wide_payloads():
+    """``tests/test_merge.py``'s case of a float32 and a u64 payload (three
+    carry planes) through the JAX engine in interpret mode, Pallas tile sort
+    included: keys below 2^16, n = 20000."""
+    rng = np.random.default_rng(0xC0FFEE)
+    n = 20_000
+    keys = rng.integers(0, 1 << 16, size=n, dtype=np.uint32)
+    vals = (rng.standard_normal(n).astype(np.float32),
+            rng.integers(0, 1 << 63, size=n, dtype=np.uint64))
+    out_k, out_v = jmerge.sort_merge(jnp.asarray(keys), tuple(jnp.asarray(v) for v in vals),
+                                     tile_rows=2, interpret=True)
+    return (keys, vals), (np.asarray(out_k),) + tuple(np.asarray(v) for v in out_v)
+
+
+def test_wide_payloads_match_jax_engine(jax_engine_wide_payloads):
+    (keys, vals), want = jax_engine_wide_payloads
+    ok, ov = vt.sort_pairs(torch.from_numpy(keys), tuple(torch.from_numpy(v) for v in vals),
+                           backend="merge")
+    for got, w in zip((ok,) + ov, want):
+        assert got.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+@pytest.mark.parametrize("payloads,index_planes", [
+    ((np.float32, np.uint64), 1), ((np.int32,) * 3, 1), ((np.float64, np.float64), 1),
+    ((np.float64,), 0), ((np.float32, np.uint64), 2)])
+def test_carry_planes_direct_or_by_index(rng, monkeypatch, payloads, index_planes):
+    # up to two int32 planes ride through the kernels; past them one local
+    # index does, int32 below INDEX32_LIMIT and (hi, lo) from it (the limit
+    # is lowered here to reach the int64 form); unpack undoes either form
+    n = 3000
+    vals = [torch.from_numpy(rng.integers(0, 1 << 62, size=n).astype(d)) for d in payloads]
+    if index_planes == 2:
+        monkeypatch.setattr(merge, "INDEX32_LIMIT", n)
+    planes, unpack = merge.carry_planes(vals, n, torch.device("cpu"))
+    if index_planes:
+        assert len(planes) == index_planes and all(p.dtype == torch.int32 for p in planes)
+    else:
+        assert len(planes) == sum(v.element_size() // 4 for v in vals)
+    key = torch.from_numpy(rng.integers(0, 50, size=n).astype(np.int32))
+    out = merge.sort_merge_planes([key] + planes, 1, tile=1024)
+    perm = torch.sort(key, stable=True).indices
+    got = unpack(out[1:])
+    assert torch.equal(out[0], key[perm]) and len(got) == len(vals)
+    for g, v in zip(got, vals):
+        assert g.dtype == v.dtype and torch.equal(g, v[perm])
+
+
+@pytest.mark.parametrize("kdt", [np.int32, np.int64])
+@pytest.mark.parametrize("npay", [0, 1, 2, 3])
+def test_idx_sort_merge_equals_idx_sort_through_carry_planes(rng, monkeypatch, kdt, npay):
+    # the distributed sort's (key, gidx) sort on the merge engine lays its
+    # payloads out through merge.carry_planes, and equals the library form
+    calls = []
+    real = merge.carry_planes
+    monkeypatch.setattr(merge, "carry_planes", lambda *a: calls.append(len(a[0])) or real(*a))
+    n = 5000
+    keys = torch.from_numpy(rng.integers(-4, 4, size=n).astype(kdt))
+    keys[::7] = torch.iinfo(keys.dtype).max
+    gidx = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    vals = [torch.from_numpy(rng.integers(0, 1 << 30, size=n).astype(d))
+            for d in (np.int32, np.float32, np.uint32)[:npay]]
+    a = distributed._idx_sort(keys, gidx, vals)
+    b = distributed._idx_sort_merge(keys, gidx, vals)
+    assert calls == [npay]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and len(b[2]) == npay
+    for x, y in zip(a[2], b[2]):
+        assert x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.parametrize("key_dtype,payloads", [(np.uint32, (np.uint32,)),
@@ -276,9 +376,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         merge.sort_merge(torch.zeros(4, dtype=torch.int32).view(torch.uint32),
                          (torch.zeros(4, dtype=torch.uint8),))
-    with pytest.raises(ValueError, match="tiled"):  # three carry planes
+    with pytest.raises(TypeError):
         merge.sort_merge(torch.zeros(4, dtype=torch.int32).view(torch.uint32),
-                         (torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int64)))
+                         (torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.float16)))
+    # three carry planes: no longer refused, carried as a local index
+    keys = torch.tensor([3, 1, 2, 1], dtype=torch.int32).view(torch.uint32)
+    a, b = torch.arange(4, dtype=torch.int32), torch.arange(4, dtype=torch.int64) << 40
+    ok, (oa, ob) = merge.sort_merge(keys, (a, b))
+    assert ok.view(torch.int32).tolist() == [1, 1, 2, 3]
+    assert oa.tolist() == [1, 3, 2, 0] and torch.equal(ob, b[oa.long()])
 
 
 def test_planes_sentinel_valued_keys(rng):

@@ -9,9 +9,10 @@ Three cases are held against the JAX package's ``sort_sharded`` on
 ``TPUContext().mesh_2d(shape)`` of the 8-device CPU mesh of
 ``tests/conftest.py``, along one axis: counts, overflow flags and each
 shard's valid prefix, on every device of the mesh (JAX's padding content is
-arbitrary). The JAX calls run under ``jax.jit`` (a few seconds each;
-unjitted, 20-40 s), once, in a module-scoped fixture. Every other case is
-held against numpy's stable argsort. The process-group 2-D mesh is tested
+arbitrary), and ``gather_sorted`` without a mesh against JAX's
+``gather_sorted`` on the same results. The JAX calls run under ``jax.jit``
+(a few seconds each; unjitted, 20-40 s), once, in a module-scoped fixture.
+Every other case is held against numpy's stable argsort. The process-group 2-D mesh is tested
 on gloo in ``tests/test_torch_mesh2d_group.py``.
 """
 
@@ -78,7 +79,8 @@ def _per_device(arr):
 @pytest.fixture(scope="module")
 def jax_results():
     """The JAX package's sort_sharded on the three cases (three jitted
-    calls): every device's shard of the keys, counts, flags and payloads."""
+    calls): every device's shard of the keys, counts, flags and payloads,
+    and JAX's gather_sorted of the global arrays."""
     out = {}
     for name, (shape, axis, kind, _, kw) in JAX_CASES.items():
         if len(jax.devices()) < shape[0] * shape[1]:
@@ -91,7 +93,9 @@ def jax_results():
             k, _m, values=v if len(v) > 1 else v[0], axis_name=_a, **_kw))
         res = step(jnp.asarray(keys), jv)
         pv = res[3] if len(jv) > 1 else (res[3],)
-        out[name] = (mesh, [_per_device(x) for x in (res[0], res[1], res[2]) + tuple(pv)])
+        gathered = jdist.gather_sorted(res[0], res[1], res[3])
+        out[name] = (mesh, [_per_device(x) for x in (res[0], res[1], res[2]) + tuple(pv)],
+                     (gathered[0],) + (tuple(gathered[1]) if len(jv) > 1 else (gathered[1],)))
     return out
 
 
@@ -108,14 +112,16 @@ def test_sort_along_an_axis_matches_jax(jax_results, name):
                                             values=tv if len(tv) > 1 else tv[0], **kw, **extra,
                                             axis_name=axis)
     pv = pv if len(tv) > 1 else (pv,)
-    jmesh, (jk, jcounts, jflags, *jvals) = jax_results[name]
+    jmesh, (jk, jcounts, jflags, *jvals), _ = jax_results[name]
     P = shape[1] if axis == "chip" else shape[0]
-    assert len(pk) == shape[0] * shape[1] == counts.shape[0] == overflow.shape[0]
+    # every device keeps its shard; counts and flags take JAX's global shape
+    assert len(pk) == shape[0] * shape[1] and counts.shape == overflow.shape == (P,)
     for i, (r, c) in enumerate(_positions(shape, axis)):
         dv = jmesh.devices[r, c]
-        assert int(counts[i]) == int(jcounts[dv][0]) and bool(overflow[i]) == bool(jflags[dv][0])
+        assert int(counts[i % P]) == int(jcounts[dv][0])
+        assert bool(overflow[i % P]) == bool(jflags[dv][0])
         assert not jflags[dv].any()
-        cnt = int(counts[i])
+        cnt = int(counts[i % P])
         assert pk[i].shape == jk[dv].shape
         np.testing.assert_array_equal(_bits(pk[i][:cnt].numpy()), _bits(jk[dv][:cnt]))
         for got, want in zip(pv, jvals):
@@ -123,8 +129,32 @@ def test_sort_along_an_axis_matches_jax(jax_results, name):
     # the replicas are bitwise equal, padding (NaN for float keys) included
     for i in range(P, len(pk)):
         assert np.array_equal(_bits(pk[i].numpy()), _bits(pk[i % P].numpy()))
-        assert torch.equal(counts[i], counts[i % P])
         assert all(np.array_equal(_bits(p[i].numpy()), _bits(p[i % P].numpy())) for p in pv)
+
+
+@pytest.mark.parametrize("name", list(JAX_CASES))
+def test_gather_sorted_without_mesh_matches_jax(jax_results, name):
+    # no mesh=: the counts' shape says how many shards to strip, one
+    # replica's, as JAX's global arrays show one replica
+    shape, axis, kind, _, kw = JAX_CASES[name]
+    if name not in jax_results:
+        pytest.skip("needs the 8-device CPU mesh")
+    keys, vals = _inputs(name)
+    extra = dict(gidx_dtype=torch.int64) if kind == "u64" else {}
+    tv = tuple(torch.from_numpy(v) for v in vals)
+    mesh2 = LocalMesh2D([["cpu"] * shape[1]] * shape[0])
+    pk, counts, _, pv = sort_sharded(torch.from_numpy(keys), mesh2,
+                                     values=tv if len(tv) > 1 else tv[0], **kw, **extra,
+                                     axis_name=axis)
+    got_k, got_v = gather_sorted(pk, counts, pv)
+    with_mesh = gather_sorted(pk, counts, pv, mesh=mesh2, axis_name=axis)
+    got_v = got_v if len(tv) > 1 else (got_v,)
+    want = jax_results[name][2]
+    assert got_k.shape == (keys.size,) == want[0].shape
+    np.testing.assert_array_equal(_bits(got_k.numpy()), _bits(want[0]))
+    np.testing.assert_array_equal(_bits(with_mesh[0].numpy()), _bits(want[0]))
+    for g, w in zip(got_v, want[1:]):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +195,11 @@ def test_shards_in_output_order_equal_the_whole_tensor(axis):
     b = sort_sharded(shards, mesh, values=pvals, axis_name=axis)
     for x, y in zip(list(a[0]) + [a[1], a[2]] + list(a[3]), list(b[0]) + [b[1], b[2]] + list(b[3])):
         assert torch.equal(x, y)
-    got_k, got_v = gather_sorted(a[0], a[1], a[3], mesh=mesh, axis_name=axis)
     perm = np.argsort(keys, kind="stable")
-    np.testing.assert_array_equal(got_k.numpy(), keys[perm])
-    np.testing.assert_array_equal(got_v.numpy(), vals[perm])
+    for got_k, got_v in (gather_sorted(a[0], a[1], a[3], mesh=mesh, axis_name=axis),
+                         gather_sorted(a[0], a[1], a[3])):
+        np.testing.assert_array_equal(got_k.numpy(), keys[perm])
+        np.testing.assert_array_equal(got_v.numpy(), vals[perm])
 
 
 def test_one_dimensional_mesh_unchanged():
@@ -192,9 +223,12 @@ def test_empty_input_along_each_axis(axis):
     mesh = LocalMesh2D([["cpu"] * 4] * 2)
     keys = torch.zeros(0, dtype=torch.uint32)
     pk, counts, overflow, pv = sort_sharded(keys, mesh, values=(keys, keys), axis_name=axis)
-    assert len(pk) == 8 and counts.tolist() == [0] * 8 and not bool(overflow.any())
+    P = mesh.shape[axis]
+    assert len(pk) == 8 and counts.tolist() == [0] * P and overflow.shape == (P,)
+    assert not bool(overflow.any())
     assert isinstance(pv, tuple) and all(len(p) == 8 for p in pv)
     assert gather_sorted(pk, counts, mesh=mesh, axis_name=axis).numel() == 0
+    assert gather_sorted(pk, counts).numel() == 0
     assert sort_distributed(keys, mesh, axis_name=axis).numel() == 0
 
 

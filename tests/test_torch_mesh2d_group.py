@@ -4,8 +4,10 @@ one position each.
 
 Tolerance: exact (bitwise). Along either axis a rank's padded shard, count
 and overflow flag must equal those of ``LocalMesh2D`` over the same grid of
-CPU shards at its position, and ``gather_sorted`` must give every rank the
-whole sorted array. The four processes are spawned once for the module;
+CPU shards at its position (its count and flag at the rank's index along
+the axis), and ``gather_sorted`` must give every rank the whole sorted
+array; without ``mesh=`` it must give the whole array or raise, never the
+rank's shard alone. The four processes are spawned once for the module;
 each checks its own shards and returns what it saw. This file imports no
 JAX, so the spawned processes, which import it, do not either.
 """
@@ -76,7 +78,7 @@ def _worker(rank, init, queue):
                 part = [torch.from_numpy(x[s * m:(s + 1) * m]) for x in (keys, v1, v2)]
                 res = sort_sharded(part[0], mesh, values=(part[1], part[2]),
                                    overlap_chunks=chunks, axis_name=axis)
-                mine = [want[i], want[nout][i:i + 1], want[nout + 1][i:i + 1],
+                mine = [want[i], want[nout][s:s + 1], want[nout + 1][s:s + 1],
                         want[nout + 2 + i], want[2 * nout + 2 + i]]
                 seen[(name, axis, chunks)] = all(torch.equal(a, b)
                                                  for a, b in zip(_flat(res), mine))
@@ -87,6 +89,17 @@ def _worker(rank, init, queue):
                     np.array_equal(got_k.numpy(), keys[perm]) and np.array_equal(
                         got_v1.numpy(), perm.astype(np.int32)) and np.array_equal(
                         got_v2.numpy(), v2[perm]))
+                try:
+                    got = gather_sorted(res[0], res[1])
+                except ValueError as e:
+                    seen[(name, axis, chunks, "no mesh")] = (
+                        "raised" if "mesh=" in str(e) else f"raised {e}")
+                else:
+                    seen[(name, axis, chunks, "no mesh")] = (
+                        "whole" if np.array_equal(got.numpy(), keys[perm]) else "partial")
+            # the LocalMesh2D output in the same processes gathers one replica
+            got = gather_sorted(want[:nout], want[nout])
+            seen[("local", axis, chunks, "no mesh")] = np.array_equal(got.numpy(), np.sort(keys))
     mesh = meshes["host_major"]
     r, c = mesh.position
     mine = torch.from_numpy(keys[c * (N // 2):(c + 1) * (N // 2)])
@@ -146,6 +159,15 @@ def test_host_major_grid_orders_by_local_rank(group_runs, axis, chunks):
         assert position == divmod(WORLD - 1 - rank, SHAPE[1])
         assert seen[("host_major", axis, chunks)], f"rank {rank}: shard differs"
         assert seen[("host_major", axis, chunks, "gathered")]
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("axis", ["chip", "host"])
+def test_gather_without_mesh_never_gives_a_shard_alone(group_runs, axis, chunks):
+    for rank, seen in group_runs.items():
+        for name in ("grid", "host_major"):
+            assert seen[(name, axis, chunks, "no mesh")] in ("raised", "whole"), (rank, name)
+        assert seen[("local", axis, chunks, "no mesh")]
 
 
 def test_group_grid_overflow_retry(group_runs):

@@ -48,6 +48,17 @@ def _flat(res):
     return out
 
 
+def _gather_without_mesh(res, want_keys) -> str:
+    """What ``gather_sorted`` without ``mesh=`` gives a rank of a process
+    group: "raised" (a ValueError asking for the mesh), "whole" (the whole
+    sorted array) or "partial" (anything else, such as its own shard)."""
+    try:
+        got = gather_sorted(res[0], res[1])
+    except ValueError as e:
+        return "raised" if "mesh=" in str(e) else f"raised {e}"
+    return "whole" if np.array_equal(got.numpy(), want_keys) else "partial"
+
+
 def _worker(rank, init, queue):
     # LOCAL_RANK runs against the rank, so the host-major mesh puts shard s
     # on rank WORLD - 1 - s
@@ -81,6 +92,10 @@ def _worker(rank, init, queue):
                 np.array_equal(got_k.numpy(), keys[perm]) and np.array_equal(
                     got_v1.numpy(), perm.astype(np.int32)) and np.array_equal(
                     got_v2.numpy(), v2[perm]))
+            seen[(name, chunks, "no mesh")] = _gather_without_mesh(res, keys[perm])
+        # several shards in one process: the LocalMesh output gathers alone
+        got = gather_sorted(want[:WORLD], want[WORLD])
+        seen[("local", chunks, "no mesh")] = np.array_equal(got.numpy(), np.sort(keys))
     mesh = multihost.global_mesh_1d(device="cpu")
     (s,) = mesh.shard_ids
     got = sort_distributed(torch.from_numpy(keys[s * m:(s + 1) * m]), mesh, slack=0.2)
@@ -130,6 +145,17 @@ def test_host_major_mesh_orders_by_local_rank(group_runs, chunks):
         assert seen[("host_major", chunks, "gathered")]
 
 
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_gather_without_mesh_never_gives_a_shard_alone(group_runs, chunks):
+    # a rank's one-shard output cannot be told from a whole array without
+    # its mesh: every rank gets the whole array or a ValueError, never its
+    # shard; a LocalMesh's output in the same processes still gathers
+    for rank, seen in group_runs.items():
+        for name in ("group", "host_major"):
+            assert seen[(name, chunks, "no mesh")] in ("raised", "whole"), (rank, name)
+        assert seen[("local", chunks, "no mesh")]
+
+
 def test_group_overflow_retry(group_runs):
     assert all(seen["retry"] for seen in group_runs.values())
 
@@ -158,5 +184,7 @@ def test_global_array_from_host_data_feeds_sort_sharded(tmp_path):
         perm = np.argsort(keys, kind="stable")
         np.testing.assert_array_equal(got_k.numpy(), keys[perm])
         np.testing.assert_array_equal(got_v.numpy(), v1[perm])
+        # at world size 1 the one shard is the whole array: no mesh needed
+        np.testing.assert_array_equal(gather_sorted(pk, counts).numpy(), keys[perm])
     finally:
         tdist.destroy_process_group()

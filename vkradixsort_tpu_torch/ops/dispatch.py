@@ -62,10 +62,12 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = 
     tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of ``op`` at the
     call's size: "kv" reads "keys", "kv" or "kv2" by the number of 4-byte
     payloads; "argsort"; "kv_unstable" (one payload); each with its "64"
-    twin for u64-encoded keys. Other payload sets take "tiled". A row never
-    sends a call to an engine that refuses it (JAX's rule): radix_tiled
-    takes one payload (argsort's positions are one) and n < 2^31, merge at
-    most two carry planes."""
+    twin for u64-encoded keys. Other payload sets take "tiled": the rows
+    were measured for at most two 4-byte payloads (merge carries a wider set
+    as a local index and a gather a payload, which no row has timed). A row
+    never sends a call to an engine that refuses it (JAX's rule):
+    radix_tiled takes one payload (argsort's positions are one) and
+    n < 2^31."""
     if backend is not None:
         if backend not in ENGINES:
             raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")

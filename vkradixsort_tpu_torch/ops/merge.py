@@ -34,7 +34,7 @@ import torch
 
 from vkradixsort_tpu_torch.engine.context import GPUContext
 from vkradixsort_tpu_torch.ops import kernels
-from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view, cdiv
+from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view, cdiv, take
 
 # Shared memory on an H100 (sm_90): what one block may opt into, what one SM
 # holds, and what the runtime reserves for every resident block. CPU tensors
@@ -43,6 +43,7 @@ H100_SMEM_PER_BLOCK_OPTIN = 232448
 H100_SMEM_PER_SM = 233472
 SMEM_RESERVED_PER_BLOCK = 1024
 MAX_KERNEL_CARRY = 2  # carry planes the kernels are instantiated for
+INDEX32_LIMIT = 1 << 31  # a carried local index is int32 below it, int64 (two planes) from it
 
 # The tile-sort kernel (csrc/tilesort.cu): TILESORT_PER_THREAD elements a
 # thread, at least 256 threads (one per digit in its scan), at most
@@ -345,13 +346,63 @@ def _join64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
 
 
+def carry_planes(vals, n: int, device) -> tuple:
+    """The int32 carry planes of the payloads ``vals`` (each of ``n``
+    elements) and how to take the sorted payloads back from them.
+
+    A 4-byte payload is one plane and an 8-byte one two (hi, lo), while
+    they fit the kernels' ``MAX_KERNEL_CARRY`` planes. A wider set stays
+    where it is: one local index rides instead, int32 below
+    ``INDEX32_LIMIT`` and int64 split into two planes from there, and every
+    payload is gathered through the sorted index (``ops/common.take``). The
+    sort is stable and the gather exact, so both forms give the same bits.
+    1- and 2-byte payloads raise ``TypeError``, as in the JAX engine.
+    Returns ``(planes, unpack)``; ``unpack(sorted_planes)`` is the list of
+    sorted payloads."""
+    for v in vals:
+        if v.element_size() not in (4, 8):
+            raise TypeError(f"merge engine carries 4/8-byte payloads, got {v.dtype}")
+    if sum(v.element_size() // 4 for v in vals) <= MAX_KERNEL_CARRY:
+        planes = []
+        for v in vals:
+            b = bits_view(v)
+            if b.element_size() == 8:
+                planes += [(b >> 32).to(torch.int32), b.to(torch.int32)]
+            else:
+                planes.append(b.contiguous())
+
+        def unpack(out: list) -> list:
+            got, pos = [], 0
+            for v in vals:
+                if v.element_size() == 8:
+                    got.append(_join64(out[pos], out[pos + 1]).view(v.dtype))
+                    pos += 2
+                else:
+                    got.append(out[pos].view(v.dtype))
+                    pos += 1
+            return got
+
+        return planes, unpack
+    if n < INDEX32_LIMIT:
+        planes = [torch.arange(n, dtype=torch.int32, device=device)]
+    else:
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        planes = [(idx >> 32).to(torch.int32), idx.to(torch.int32)]
+
+    def unpack(out: list) -> list:
+        idx = out[0] if len(out) == 1 else _join64(out[0], out[1])
+        return [take(v, idx) for v in vals]
+
+    return planes, unpack
+
+
 def sort_merge(enc: torch.Tensor, vals: tuple = (), *, tile: int | None = None):
     """Merge engine on encoded (unsigned) keys with payloads; stable.
 
-    Accepts uint32/uint64 encoded keys and 4- or 8-byte payloads that need
-    at most ``MAX_KERNEL_CARRY`` int32 carry planes (two for 8 bytes);
-    returns ``(sorted_enc, sorted_vals_tuple)``. Wider payload sets take the
-    "tiled" engine (``ops/dispatch._route``).
+    Accepts uint32/uint64 encoded keys and any number of 4- or 8-byte
+    payloads (:func:`carry_planes`: up to ``MAX_KERNEL_CARRY`` int32 planes
+    ride through the kernels, a wider set as one local index and a gather a
+    payload); returns ``(sorted_enc, sorted_vals_tuple)``.
     """
     if enc.dtype == torch.uint32:
         key_planes = [enc.view(torch.int32) ^ _MIN32]
@@ -361,33 +412,10 @@ def sort_merge(enc: torch.Tensor, vals: tuple = (), *, tile: int | None = None):
     else:
         raise TypeError(f"merge engine sorts encoded u32/u64 keys, got {enc.dtype}")
     nck = len(key_planes)
-    carry = []
-    for v in vals:
-        size = v.element_size()
-        if size == 8:
-            b = bits_view(v)
-            carry += [(b >> 32).to(torch.int32), b.to(torch.int32)]
-        elif size == 4:
-            carry.append(bits_view(v).contiguous())
-        else:
-            raise TypeError(f"merge engine carries 4/8-byte payloads, got {v.dtype}")
-    if len(carry) > MAX_KERNEL_CARRY:
-        raise ValueError(
-            f"the merge engine carries at most {MAX_KERNEL_CARRY} int32 planes of payload, "
-            f"got {len(carry)}; sort them with backend='tiled'"
-        )
+    carry, unpack = carry_planes(vals, enc.shape[0], enc.device)
     out = sort_merge_planes(key_planes + carry, nck, tile=tile)
     if enc.dtype == torch.uint32:
         out_enc = (out[0] ^ _MIN32).view(torch.uint32)
     else:
         out_enc = _join64(out[0] ^ _MIN32, out[1] ^ _MIN32).view(torch.uint64)
-    out_vals = []
-    pos = nck
-    for v in vals:
-        if v.element_size() == 8:
-            out_vals.append(_join64(out[pos], out[pos + 1]).view(v.dtype))
-            pos += 2
-        else:
-            out_vals.append(out[pos].view(v.dtype))
-            pos += 1
-    return out_enc, tuple(out_vals)
+    return out_enc, tuple(unpack(out[nck:]))

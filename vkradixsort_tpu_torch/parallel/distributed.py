@@ -96,17 +96,14 @@ def _idx_sort(keys: torch.Tensor, gidx: torch.Tensor, values: list):
 def _idx_sort_merge(keys: torch.Tensor, gidx: torch.Tensor, values: list):
     """The same (key, gidx) order on the merge engine: the key's int32
     planes (one, or (hi, lo) for 64-bit keys) and gidx are the compare
-    planes, the payloads carry planes. The kernels carry at most
-    ``merge.MAX_KERNEL_CARRY`` planes; more payloads ride as one int32
-    local index and are gathered after the sort."""
+    planes, the payloads ride as ``merge.carry_planes`` lays them out (as
+    carry planes, or past ``merge.MAX_KERNEL_CARRY`` as one local index and
+    a gather each after the sort)."""
     if keys.element_size() == 4:
         kp = [keys]
     else:
         kp = [(keys >> 32).to(torch.int32), keys.to(torch.int32) ^ _MIN32]
-    n = keys.shape[0]
-    direct = len(values) <= merge.MAX_KERNEL_CARRY
-    carry = ([bits_view(v) for v in values] if direct
-             else [torch.arange(n, dtype=torch.int32, device=keys.device)])
+    carry, unpack = merge.carry_planes(values, keys.shape[0], keys.device)
     planes = [p.contiguous() for p in kp + [gidx] + carry]  # a chunk is a strided view
     out = merge.sort_merge_planes(planes, len(kp) + 1)
     if len(kp) == 1:
@@ -114,11 +111,7 @@ def _idx_sort_merge(keys: torch.Tensor, gidx: torch.Tensor, values: list):
     else:
         out_k = (out[0].to(torch.int64) << 32) | ((out[1] ^ _MIN32).to(torch.int64) & 0xFFFFFFFF)
     nk = len(kp)
-    if direct:
-        out_v = [o.view(v.dtype) for o, v in zip(out[nk + 1:], values)]
-    else:
-        out_v = [take(v, out[nk + 1]) for v in values]
-    return out_k, out[nk], out_v
+    return out_k, out[nk], unpack(out[nk + 1:])
 
 
 def _pick_local_engine(local_engine, gdt, vals, n_chunk: int, nck: int, device) -> str:
@@ -369,11 +362,15 @@ def sort_sharded(shards, mesh, values=None, *, slack: float = 2.0, oversample: i
     (required), P its size. A ``LocalMesh2D`` takes the whole 1-D tensor,
     whose length must divide by P, cut into P shards each placed on the
     devices of its index in every replica, or the list of its shards in the
-    output's order; a ``GroupMesh2D`` takes this rank's shard. The output
-    is replica-major: each 1-D mesh's P shards in axis order (its rows
-    along the second axis, its columns along the first), one mesh after
-    another; ``counts`` and ``overflow`` have one entry per output shard, in
-    that order. A ``GroupMesh2D`` gives this rank's one shard.
+    output's order; a ``GroupMesh2D`` takes this rank's shard. On a
+    ``LocalMesh2D`` ``padded_keys`` and ``padded_values`` are replica-major,
+    every device keeping its copy: each 1-D mesh's P shards in axis order
+    (its rows along the second axis, its columns along the first), one mesh
+    after another. ``counts`` and ``overflow`` take the JAX package's global
+    shape, (P,): ``counts`` the first replica's (the replicas are bitwise
+    equal), ``overflow`` the OR over the replicas, so a retry sees every
+    one. ``gather_sorted`` then strips the first replica. A ``GroupMesh2D``
+    gives this rank's one shard.
     """
     kw = dict(slack=slack, oversample=oversample, descending=descending,
               overlap_chunks=overlap_chunks, gidx_dtype=gidx_dtype, local_engine=local_engine)
@@ -396,9 +393,10 @@ def sort_sharded(shards, mesh, values=None, *, slack: float = 2.0, oversample: i
         vals = None if values is None else (
             type(values)(cut(v, i) for v in payloads) if multi else cut(values, i))
         res.append(_sort_1d(cut(shards, i), m, vals, **kw))
-    dev0 = res[0][1].device
-    out = ([s for r in res for s in r[0]], torch.cat([r[1].to(dev0) for r in res]),
-           torch.cat([r[2].to(dev0) for r in res]))
+    overflow = res[0][2]
+    for r in res[1:]:
+        overflow = overflow | r[2].to(overflow.device)
+    out = ([s for r in res for s in r[0]], res[0][1], overflow)
     if values is None:
         return out
     if multi:
@@ -478,19 +476,26 @@ def gather_sorted(padded_keys, counts, padded_values=None, *, mesh=None,
     """Strip the padding of ``sort_sharded``'s output and concatenate the
     shards: the sorted keys (and payloads, in the container of
     ``padded_values``) as one tensor on the first shard's device. Reads the
-    counts on the host. With a ``GroupMesh`` (pass it as ``mesh``) every
-    rank receives the whole sorted array. With a 2-D mesh and the
-    ``axis_name`` of the sort, it strips one replica: the first of a
-    ``LocalMesh2D``; on a ``GroupMesh2D`` every rank receives its row's or
-    column's whole sorted array."""
+    counts on the host and strips the first ``len(counts)`` shards: every
+    shard of a 1-D ``LocalMesh``'s output, the first replica of a
+    ``LocalMesh2D``'s (its counts have one entry per shard of one replica),
+    the JAX package's answer in both. With a ``GroupMesh`` (pass it as
+    ``mesh``) every rank receives the whole sorted array; with a 2-D mesh
+    and the ``axis_name`` of the sort, the same over its ``GroupMesh2D``
+    row or column (a ``LocalMesh2D`` needs neither). Without ``mesh``, a
+    one-shard output in a process group of more than one rank raises
+    ``ValueError``: it may be this rank's shard of a process-group mesh,
+    whose layout only the mesh knows."""
     if mesh is not None:
         mesh = _axis_meshes(mesh, axis_name)[0]
     elif axis_name is not None:
         raise ValueError("axis_name needs the mesh the output was sorted on")
+    elif len(padded_keys) == 1 and _world_size() > 1:
+        raise ValueError("in a process group of more than one rank, a one-shard output may be "
+                         "this rank's shard of a GroupMesh or GroupMesh2D: pass mesh= (and "
+                         "axis_name= on a 2-D mesh) so every rank gathers the whole array")
     if isinstance(mesh, GroupMesh):
         counts = mesh.all_gather([counts])[0].reshape(-1)
-    elif isinstance(mesh, LocalMesh):
-        counts = counts[:mesh.size]  # the first replica's
     cs = counts.tolist()
     dev0 = padded_keys[0].device
 
@@ -506,6 +511,13 @@ def gather_sorted(padded_keys, counts, padded_values=None, *, mesh=None,
             padded_values and not isinstance(padded_values[0], torch.Tensor)):
         return out_k, type(padded_values)(strip(pv) for pv in padded_values)
     return out_k, strip(padded_values)
+
+
+def _world_size() -> int:
+    """Ranks of the default process group; 1 where there is none."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def sort_distributed(shards, mesh, values=None, *, slack: float = 2.0, oversample: int = 32,
