@@ -150,7 +150,12 @@ package's bench checks its 1e8 sort.
  13. the reference's own fixtures from the host runtime (1e6 mt19937 keys
      in its 28-bit range, and the descending sequence) through
      ``sort_pairs`` on the default route and on radix_tiled, bitwise
-     against the oracle, and the seconds the host checks added to the run.
+     against the oracle, and the seconds the host checks added to the run;
+ 14. the port's benchmark, ``python -m vkradixsort_tpu_torch.bench`` at
+     1e8, as a subprocess: exit code 0, exactly one JSON line on stdout
+     with the contract's four keys and a value above 0, its 1e8 sort's
+     kernel launches (from its stderr) those of the default route, and its
+     value beside N over phase 5's radix_tiled sort.
 
 With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
 (``route_crossovers`` of phase 10, ``dist_local_crossovers`` of phase 11,
@@ -169,8 +174,9 @@ shard); the
 bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
 PERF.md, as text; the histogram and radix_dest entries add their 8 passes'
-ms on the 1e8 u64 Zipf sort with its bound, and on uniform u64 keys. The
-last is the run's JSON result. Without a CUDA device, or without the
+ms on the 1e8 u64 Zipf sort with its bound, and on uniform u64 keys, and
+their launches in phase 14's benchmark run. The last is the run's JSON
+result. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
 
@@ -2146,6 +2152,51 @@ def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
     return st
 
 
+BENCH_NAMES = {"histogram": "tile_histograms", "radix_scatter": "tile_scatter",
+               "tilesort": "tilesort", "mergepath": "mergepath_level"}  # wrapper of each kernel
+
+
+def bench_twin(dev, radix_ms: list, smi: str) -> dict:
+    """Phase 14: the port's benchmark, ``python -m vkradixsort_tpu_torch.bench``
+    at 1e8, as a subprocess from the root of this checkout (it reuses the
+    kernels and host runtime built above). It must exit 0 with exactly one
+    JSON line on stdout, holding the contract's four keys and a value above
+    0, and its 1e8 sort must have launched the kernels of the default route
+    (its stderr logs the launches of that call). Its value is printed
+    beside N over phase 5's whole radix_tiled sort at the default chunk
+    (``radix_ms``, both turns). Returns {"line": the JSON line, "launches":
+    the sort's launches by wrapper}."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the twin allocates in its own process
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vkradixsort_tpu_torch.bench", "--n", str(N_MAIN)],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=600)
+    took = time.perf_counter() - t0
+    for line in r.stderr.strip().splitlines()[-40:]:
+        phase("bench", f"stderr: {line}")
+    out = r.stdout.splitlines()
+    if r.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"the benchmark twin exited {r.returncode} with {len(out)} stdout "
+                             f"lines: {out[:5]}")
+    line = json.loads(out[0])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0:
+        raise AssertionError(f"the benchmark twin's line is not the contract's: {line}")
+    logged = [s for s in r.stderr.splitlines() if "kernel launches " in s]
+    launches = json.loads(logged[-1].split("kernel launches ", 1)[1]) if logged else {}
+    want = {BENCH_NAMES[k]: v for k, v in
+            expected_launches(route_for("kv", N_MAIN), N_MAIN, False, dev).items()}
+    if launches != want:
+        raise AssertionError(f"the benchmark twin's 1e8 sort launched {launches}, expected {want}")
+    phase5 = [N_MAIN / (ms / 1e3) / 1e6 for ms in radix_ms]
+    phase("bench", f"python -m vkradixsort_tpu_torch.bench (n={N_MAIN}): rc 0 in {took:.2f} s of "
+                   f"host, stdout {out[0]}; its sort's launches {launches}, expected {want}; value "
+                   f"{line['value']} M keys/s against N over phase 5's radix_tiled sort ("
+                   + ", ".join(f"{ms:.4f} ms: {x:.1f}" for ms, x in zip(radix_ms, phase5))
+                   + f" M keys/s), ratio {line['value'] / statistics.mean(phase5):.4f} [{smi}]")
+    return {"line": line, "launches": launches}
+
+
 def routes_only(dev, smi: str) -> None:
     """``--routes``: the measurements behind this PR's ROUTE_TABLE rows
     alone, for repeated runs: the dispatcher's crossovers (phase 10), the
@@ -2304,6 +2355,9 @@ def main() -> None:
                     f" s of this run: phase 5 {rst['oracle_s']:.3f}, phase 12 "
                     f"{routes_oracle_s:.3f}, fixtures {fixtures_s:.3f} [host: {host_cpu()}]")
 
+    # --- 14. the port's benchmark, as a user runs it
+    twin = bench_twin(dev, rst["sweep"]["sort_pairs"][vt.SortConfig().chunk], smi)
+
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
     # keys and values read and written, the base table read; 4 passes
@@ -2335,6 +2389,7 @@ def main() -> None:
          "max_abs_err": err["histogram"], "ms": rst["histogram"],
          "plain_ms": rst["histogram_plain"], "bound_ms": bound_ms(hist_bytes),
          "bound_by": "bytes", "library_ms": rst["histogram_library"],
+         "bench_launches": twin["launches"].get("tile_histograms", 0),
          "u64_zipf_1e8_ms": sum(u64["zipf"]["histogram"]),
          "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["histogram_bound"],
          "u64_uniform_1e8_ms": sum(u64["uniform"]["histogram"])},
@@ -2345,6 +2400,7 @@ def main() -> None:
          "ms": rst["radix_scatter"], "plain_ms": rst["radix_scatter_plain"],
          "bound_ms": bound_ms(move_bytes), "bound_by": "bytes",
          "library_ms": rst["radix_scatter_library"],
+         "bench_launches": twin["launches"].get("tile_scatter", 0),
          "pr5": "3.397 ms dest + 1.740 widen + 16.161 torch scatter",
          "u64_zipf_1e8_ms": sum(u64["zipf"]["radix_dest"]),
          "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["radix_dest_bound"],

@@ -838,3 +838,29 @@ def test_wide_payload_merge_on_the_card_equals_plain(dev, key_dtype, payloads, n
         for g, p in zip(gv, pvs):
             assert g.dtype == p.dtype and torch.equal(common.bits_view(g).cpu(),
                                                       common.bits_view(p))
+
+
+def test_bench_gates_and_pair_timing_on_the_card(dev):
+    # the benchmark twin's gates on a default-route sort of 2^20 pairs, and
+    # the kv timer with a tuple of two payloads
+    from vkradixsort_tpu_torch import bench
+    from vkradixsort_tpu_torch.utils.timing import measure_pairs_seconds_per_call
+
+    n = 1 << 20
+    keys_np = np.random.default_rng(n).integers(0, 1 << 32, size=n, dtype=np.uint32)
+    keys = torch.from_numpy(keys_np).to(dev)
+    values = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    out_k, out_v = vt.sort_pairs(keys, values)
+    ok, detail = bench.window_oracle_checks(out_k, out_v, keys_np, np.random.default_rng(1))
+    assert ok, detail
+    assert bench.device_side_checks(keys, values, out_k, out_v)
+    assert bench.pairing_sum(out_k, out_v) == bench.pairing_sum(out_k.cpu(), out_v.cpu())
+    bits = common.bits_view(out_v).clone()
+    bits[[0, n - 1]] = bits[[n - 1, 0]]  # a re-pairing inside both end windows
+    bad_v = bits.view(torch.uint32)
+    assert not bench.device_side_checks(keys, values, out_k, bad_v)
+    ok, detail = bench.window_oracle_checks(out_k, bad_v, keys_np, np.random.default_rng(1))
+    assert not ok and detail.startswith("value window mismatch at [0, 1024)")
+    payloads = (values, torch.randn(n, device=dev))
+    seconds = measure_pairs_seconds_per_call(vt.sort_pairs, keys, payloads)
+    assert 0 < seconds < 1
