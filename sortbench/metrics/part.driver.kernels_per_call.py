@@ -1,0 +1,10 @@
+"""``driver.kernels_per_call`` in the cells whose host sets the pace (small partitions), where
+the host's speed moves it from run to run far more than in the cells the
+card sets the pace of: the same reading (``driver.kernels_per_call.py``), split so that
+each keeps a bound or a moved metric of its own."""
+
+import pathlib
+
+from sortbench.harness import load_reader
+
+read = load_reader(pathlib.Path(__file__).parent, "driver.kernels_per_call")

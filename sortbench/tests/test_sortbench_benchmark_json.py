@@ -1,0 +1,130 @@
+"""BENCHMARK.json keeps to its contract's shapes, and a cell is found by
+name from files alone."""
+
+import json
+import pathlib
+import re
+
+import pytest
+
+from sortbench import generator, harness
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}\Z")
+UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}\Z")
+METRIC_KEYS = {"name", "unit", "better", "source"}
+
+
+def one_line(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert BENCH["command"] == ["python3", "sortbench/run.py"]
+    assert BENCH["paths"] == ["sortbench"]
+    assert isinstance(BENCH["run_seconds"], int) and 1 <= BENCH["run_seconds"] <= 51
+    assert len(json.dumps(BENCH)) <= 64 * 1024
+
+
+def test_names_and_units():
+    names = [c["name"] for c in BENCH["configs"]] + [w["name"] for w in BENCH["workloads"]]
+    names += [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    names += [w["traffic"] for w in BENCH["workloads"]]
+    names += [k for c in BENCH["configs"] for k in c["reduced"]]
+    for n in names:
+        assert NAME.match(n), n
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]), m
+        assert m["better"] in ("lower", "higher")
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        got = [x["name"] for x in BENCH[group]]
+        assert len(got) == len(set(got)), group
+
+
+def test_configs():
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert one_line(c["source"]) and one_line(c["why"])
+        assert c["file"].startswith("sortbench/configs/")
+        data = json.loads((ROOT / c["file"]).read_text())
+        assert data["name"] == c["name"] and data["source"] == c["source"]
+        assert data["reduced"] == c["reduced"]
+        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+
+
+def test_workloads():
+    pairs = set()
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] in (1, 4) and one_line(w["why"])
+        assert (ROOT / "sortbench" / "traffic" / f"{w['traffic']}.json").exists()
+        assert (w["config"], w["traffic"]) not in pairs
+        pairs.add((w["config"], w["traffic"]))
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_metrics():
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert "setup_s" in e2e
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == METRIC_KEYS | {"bound"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == METRIC_KEYS | {"layer", "moves"}
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+        assert m["moves"] in e2e and one_line(m["layer"])
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert (ROOT / "sortbench" / "metrics" / f"{m['name']}.py").exists(), m["name"]
+        if m["unit"] == "%" and "roofline" in m["name"]:
+            assert m["name"].endswith("_roofline")
+
+
+def test_per_layer_cells_report_what_they_move():
+    for m in BENCH["per_layer"]:
+        for w in m.get("workloads", []):
+            assert m["moves"] in {e["name"] for e in harness.find_cell(w).end_to_end}
+
+
+def test_every_cell_reports_enough():
+    for w in BENCH["workloads"]:
+        cell = harness.find_cell(w["name"])
+        names = {m["name"] for m in cell.end_to_end}
+        assert "setup_s" in names and len(names) >= 2
+        assert cell.per_layer
+        assert all(m["moves"] in names for m in cell.per_layer)
+
+
+def test_new_cell_from_new_files(tmp_path):
+    """A later cell is a config file, a traffic file and entries: the
+    harness finds it by name and plans its calls, with no code edited."""
+    (tmp_path / "sortbench" / "configs").mkdir(parents=True)
+    (tmp_path / "sortbench" / "traffic").mkdir()
+    config = {"name": "u32-tiny", "source": "https://example.org/tiny", "rows": 5000,
+              "key": {"dtype": "uint32", "distribution": "uniform"},
+              "columns": {"row_id": "uint32"}, "reduced": [], "assumed": {}}
+    traffic = {"call": "sort_pairs", "payloads": ["row_id"],
+               "rows": {"log_uniform": [100, 1000], "sizes": 8}, "offset": "uniform",
+               "key_sets": 1, "in_flight": 2, "check_answers": 3, "trace_calls": 4}
+    (tmp_path / "sortbench" / "configs" / "u32-tiny.json").write_text(json.dumps(config))
+    (tmp_path / "sortbench" / "traffic" / "tiny-mix.json").write_text(json.dumps(traffic))
+    bench = {**BENCH,
+             "configs": [{"name": "u32-tiny", "source": config["source"],
+                          "file": "sortbench/configs/u32-tiny.json", "reduced": [], "why": "t"}],
+             "workloads": [{"name": "tiny", "config": "u32-tiny", "traffic": "tiny-mix",
+                            "chips": 1, "why": "t"}],
+             "per_layer": BENCH["per_layer"] + [
+                 {"name": "other.metric", "unit": "ms", "better": "lower", "source": "host_clock",
+                  "layer": "x", "moves": "rows_per_s", "workloads": ["not-this-cell"]}]}
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = harness.find_cell("tiny", root=tmp_path)
+    assert cell.config == config and cell.traffic == traffic
+    assert cell.metrics_dir == tmp_path / "sortbench" / "metrics"
+    assert "other.metric" not in {m["name"] for m in cell.per_layer}
+    calls = generator.plan(cell.traffic, cell.config["rows"], 1)
+    assert len(calls) == 8 and all(c.offset + c.rows <= 5000 for c in calls)
+    with pytest.raises(KeyError):
+        harness.find_cell("absent", root=tmp_path)
