@@ -108,7 +108,7 @@ package's bench checks its 1e8 sort.
      and "merge", each exact on the device with no overflow, balance <=
      1.25, its tile-sort and merge-path launches (exactly as many as its
      local sorts need) and peak memory, the device ms by step (a profiler
-     trace of the body's ``sort_sharded/<step>`` ranges) beside one
+     trace of the body's ``vkrs/sort_sharded/<step>`` spans) beside one
      ``sort_pairs``; on the merge runs, the tile sort and every merge level
      bitwise against their plain versions on the very planes the run gives
      the merge engine (a shard's local sort and its final sort, default
@@ -215,6 +215,7 @@ from vkradixsort_tpu_torch.ops.common import (
     extract_digit,
     take,
 )
+from vkradixsort_tpu_torch.utils import profiling
 from vkradixsort_tpu_torch.utils.fixtures import make_keys
 from vkradixsort_tpu_torch.utils.timing import measure_seconds_per_call
 
@@ -230,6 +231,17 @@ ORACLE_WINDOWS, ORACLE_WIDTH = 16, 1024  # bench.py's window gate
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (data sheet)
+# this script's names for the kernel wrappers' launch counters (launch.<wrapper>)
+LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "tile_histograms",
+          "radix_scatter": "tile_scatter", "radix_dest": "tile_destinations",
+          "fused": "sort_fused", "placement": "place_runs"}
+
+
+def launches_since(before: dict, *kernels_: str) -> dict:
+    """The launches of each of ``kernels_`` (keys of :data:`LAUNCH`) since the
+    counter snapshot ``before`` (``profiling.counters()``)."""
+    moved = profiling.since(before)
+    return {k: moved.get("launch." + LAUNCH[k], 0) for k in kernels_}
 
 
 def phase(name: str, msg: str) -> None:
@@ -701,13 +713,10 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
-    histogram.tile_histograms.launches = 0
-    radix_tiled.tile_scatter.launches = radix_tiled.tile_destinations.launches = 0
+    c0 = profiling.counters()
     out_k, out_v = vt.sort_pairs(keys, values, backend=backend)
     torch.cuda.synchronize()
-    launches = {"histogram": histogram.tile_histograms.launches,
-                "radix_scatter": radix_tiled.tile_scatter.launches,
-                "radix_dest": radix_tiled.tile_destinations.launches}
+    launches = launches_since(c0, "histogram", "radix_scatter", "radix_dest")
     peak = torch.cuda.max_memory_allocated(dev)
     check_kv(keys, out_k, out_v)
     phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
@@ -812,10 +821,10 @@ def fused_main_path(dev, rng, smi: str) -> tuple:
         vals = rng.integers(0, np.iinfo(vdt).max, size=N_FUSED, dtype=vdt, endpoint=True)
         tk, tv = torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev)
         torch.cuda.synchronize()
-        fused.sort_fused.launches = 0
+        c0 = profiling.counters()
         ok, ov = vt.sort_pairs(tk, tv, backend="fused")
         torch.cuda.synchronize()
-        calls.append(fused.sort_fused.launches)
+        calls.append(launches_since(c0, "fused")["fused"])
         check_numpy_kv(keys, vals, ok, ov, f"fused sort of {np.dtype(kdt).name} pairs")
     phase("slice", f"sort_pairs n={N_FUSED} backend=fused, u32 kv and u64 keys with a u64 payload: "
                    f"bitwise equal to numpy's stable argsort; launches {calls}, expected [1, 1]")
@@ -945,10 +954,10 @@ def compare_bitonic(dev, rng) -> int:
         keys = segsort.to_signed_order(torch.from_numpy(radix_keys(rng, n, kdt, kind)).to(dev))
         vals = tuple(torch.from_numpy(rng.integers(0, 2**63, size=n, dtype=np.uint64).astype(v))
                      .to(dev) for v in vdts)
-        bitonic.reset_launch_counts()
+        c0 = bitonic.launch_counts()
         ok, ov = bitonic.bitonic_sort_block(keys, vals)
         torch.cuda.synchronize()
-        counts = bitonic.launch_counts()
+        counts = {k: v - c0[k] for k, v in bitonic.launch_counts().items()}
         want = bitonic_expected(n, keys.element_size() // 4, len(vals), dev)
         pk, pv = bitonic.bitonic_sort_block_plain(keys, vals)
         e = max_abs_err([ok, *ov], [pk, *pv])
@@ -980,13 +989,13 @@ def bitonic_main_path(dev, rng, smi: str) -> tuple:
             vals = (np.arange(n, dtype=vdt) if vdt == np.uint32
                     else rng.integers(0, 2**64, size=n, dtype=np.uint64))
         torch.cuda.synchronize()
-        bitonic.reset_launch_counts()
+        c0 = bitonic.launch_counts()
         if vals is None:
             out = vt.sort(tk, backend="bitonic")
         else:
             ok, ov = vt.sort_pairs(tk, torch.from_numpy(vals).to(dev), backend="bitonic")
         torch.cuda.synchronize()
-        counts = bitonic.launch_counts()
+        counts = {k: v - c0[k] for k, v in bitonic.launch_counts().items()}
         want = bitonic_expected(n, np.dtype(kdt).itemsize // 4, 0 if vals is None else 1, dev)
         if vals is None:
             if not np.array_equal(bits_view(out).cpu().numpy().view(kdt), np.sort(keys)):
@@ -1059,15 +1068,16 @@ def samplesort_main_path(dev, rng, smi: str) -> tuple:
     err = max(err, max_abs_err(samplesort.place_runs([small], starts, lens, 896, fills),
                                samplesort.place_runs_plain([small], starts, lens, 896, fills)))
     forced = radix_keys(rng, 60_000, np.uint32, "ties")
-    samplesort.place_runs.launches = 0
+    c0 = profiling.counters()
     fk, fv, fired = samplesort.sort_pairs_samplesort(
         torch.from_numpy(forced).to(dev), torch.arange(60_000, dtype=torch.int32, device=dev),
         tile_target=1 << 14, bucket_target=1 << 12, oversample=1, slack=1.01, _debug_overflow=True)
     check_numpy_kv(forced, np.arange(60_000, dtype=np.int32), fk, fv, "forced-overflow samplesort")
+    placed = launches_since(c0, "placement")["placement"]
     phase("compare", f"placement small u64 case: max_abs_err {err}; forced-overflow kv sort of "
-                     f"60000: fallback fired {fired}, placement launches "
-                     f"{samplesort.place_runs.launches}, bitwise equal to numpy")
-    if not fired or samplesort.place_runs.launches:
+                     f"60000: fallback fired {fired}, placement launches {placed}, bitwise equal "
+                     "to numpy")
+    if not fired or placed:
         raise AssertionError("the forced-overflow case did not take the fallback")
 
     keys = random_u32(dev, N_MAIN, SEED + 7)
@@ -1109,29 +1119,29 @@ def samplesort_main_path(dev, rng, smi: str) -> tuple:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    samplesort.place_runs.launches = 0
+    c0 = profiling.counters()
     out_k, out_v = vt.sort_pairs(keys, values, backend="samplesort")
     torch.cuda.synchronize()
-    launches = samplesort.place_runs.launches
+    launches = launches_since(c0, "placement")["placement"]
     st["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     check_kv(keys, out_k, out_v)
     del out_k, out_v
-    samplesort.place_runs.launches = 0
+    c0 = profiling.counters()
     out = vt.sort(keys, backend="samplesort")
     torch.cuda.synchronize()
-    keys_launches = samplesort.place_runs.launches
+    keys_launches = launches_since(c0, "placement")["placement"]
     want = torch.sort(keys.view(torch.int32) ^ _MIN32).values ^ _MIN32
     if not torch.equal(out.view(torch.int32), want):
         raise AssertionError("samplesort keys at 1e8 disagree with torch.sort")
     del out, want
     k64 = rng.integers(0, 2**64, size=N_SMALL, dtype=np.uint64) >> np.uint64(20)
     v64 = np.arange(N_SMALL, dtype=np.uint32)
-    samplesort.place_runs.launches = 0
+    c0 = profiling.counters()
     ok, ov = vt.sort_pairs(torch.from_numpy(k64).to(dev), torch.from_numpy(v64).to(dev),
                            backend="samplesort")
     o64 = vt.sort(torch.from_numpy(k64).to(dev), backend="samplesort")
     torch.cuda.synchronize()
-    u64_launches = samplesort.place_runs.launches
+    u64_launches = launches_since(c0, "placement")["placement"]
     check_numpy_kv(k64, v64, ok, ov, "samplesort u64 kv at 1e6")
     if not np.array_equal(bits_view(o64).cpu().numpy().view(np.uint64), np.sort(k64)):
         raise AssertionError("samplesort u64 keys at 1e6 disagree with np.sort")
@@ -1574,7 +1584,7 @@ def dist_steps_ms(call, reps: int = 3) -> dict:
     """Device ms of each step of the distributed sort's body: ``reps`` calls
     under ``torch.profiler``, after one untimed call, its trace written to
     build/dist_trace.json. A step's time is the span on the device of its
-    ``sort_sharded/<step>`` range (the trace's GPU user annotation: from its
+    ``vkrs/sort_sharded/<step>`` span (the trace's GPU user annotation: from its
     first kernel's start to its last kernel's end), summed over the call's
     ranges of that name, mean over the calls; its "busy" time is the
     kernels' time inside those spans. "whole" is one call by CUDA events
@@ -1596,9 +1606,9 @@ def dist_steps_ms(call, reps: int = 3) -> dict:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
-    spans = [(e["name"].removeprefix("sort_sharded/"), e["ts"], e["ts"] + e["dur"])
+    spans = [(e["name"].removeprefix("vkrs/sort_sharded/"), e["ts"], e["ts"] + e["dur"])
              for e in events if e.get("cat") == "gpu_user_annotation"
-             and e.get("name", "").startswith("sort_sharded/")]
+             and e.get("name", "").startswith("vkrs/sort_sharded/")]
     if {name for name, _, _ in spans} != set(STEPS):
         raise AssertionError(f"the trace has no device span for some steps: "
                              f"{sorted({name for name, _, _ in spans})}, categories "
@@ -1644,10 +1654,10 @@ def distributed_main_path(dev, rng, smi: str) -> tuple:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             before = torch.cuda.memory_allocated(dev)
-            merge.tilesort.launches = merge.mergepath_level.launches = 0
+            c0 = profiling.counters()
             pk, counts, overflow, pv = call()
             torch.cuda.synchronize()
-            got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+            got = launches_since(c0, "tilesort", "mergepath")
             peak = torch.cuda.max_memory_allocated(dev)
             c = counts.cpu().numpy()
             balance = c.max() / c.mean()
@@ -1715,10 +1725,10 @@ def distributed_small_paths(dev, rng, smi: str) -> dict:
                                 oversample=64)
 
     torch.cuda.synchronize()
-    merge.tilesort.launches = merge.mergepath_level.launches = 0
+    c0 = profiling.counters()
     got_k, got_v = call()
     torch.cuda.synchronize()
-    got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+    got = launches_since(c0, "tilesort", "mergepath")
     check_numpy_kv(keys, vals, got_k, got_v, "distributed u64 zipf kv on the merge engine")
     phase("slice", f"sort_distributed n={N_DIST_U64} u64 zipf kv, local_engine=merge (nck=3): "
                    f"bitwise equal to numpy's stable argsort; launches {got}")
@@ -1876,16 +1886,15 @@ def distributed_2d_path(dev, smi: str) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
-        merge.tilesort.launches = merge.mergepath_level.launches = 0
+        c0 = profiling.counters()
         pk, counts, overflow, pv = call()
         torch.cuda.synchronize()
-        got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+        got = launches_since(c0, "tilesort", "mergepath")
         peak = torch.cuda.max_memory_allocated(dev)
-        merge.tilesort.launches = merge.mergepath_level.launches = 0
+        c0 = profiling.counters()
         rk, rcounts, roverflow, rv = call_1d()
         torch.cuda.synchronize()
-        got_1d = {"tilesort": merge.tilesort.launches,
-                  "mergepath": merge.mergepath_level.launches}
+        got_1d = launches_since(c0, "tilesort", "mergepath")
         n_local = N_MAIN // P
         cap = int(2.0 * n_local / P) + 64
         lt, ll = merge_launches(n_local, 2, dev)
@@ -1997,7 +2006,7 @@ def check_past_2_31(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
     keys[::7] = 2**31 - 1  # ties at the top of the signed order
-    merge.tilesort.launches = merge.mergepath_level.launches = 0
+    c0 = profiling.counters()
     (tiled,) = merge.tilesort([keys], 1, tile)
     lo = (cdiv(n, tile) - 3) * tile
     e_tile = max_abs_err([tiled[lo:]], merge.tilesort_plain([keys[lo:]], 1, tile))
@@ -2009,7 +2018,7 @@ def check_past_2_31(dev) -> None:
     phase("compare", f"n={n} (2^31 + 4097) one key plane: tilesort tile {tile}, last 3 tiles "
                      f"from {(cdiv(n, tile) - 3) * tile}: max_abs_err {e_tile}; mergepath run "
                      f"{tile}, last 2 run pairs from {lo}: max_abs_err {e_merge}; launches "
-                     f"{merge.tilesort.launches} + {merge.mergepath_level.launches}")
+                     f"{launches_since(c0, 'tilesort', 'mergepath')}")
     if e_tile or e_merge:
         raise AssertionError("the merge kernels disagree with their plain versions past 2^31")
 
@@ -2017,18 +2026,13 @@ def check_past_2_31(dev) -> None:
 # --- 12. the dispatcher's other paths at the bench size, on their default routes
 
 def counted(call):
-    """``call()`` with every kernel counter of the dispatcher's routes set to
-    0 just before it and read just after: (result, {kernel: launches > 0})."""
+    """``call()`` and the launches of every kernel of the dispatcher's
+    routes that it made: (result, {kernel: launches > 0})."""
     torch.cuda.synchronize()
-    merge.tilesort.launches = merge.mergepath_level.launches = 0
-    histogram.tile_histograms.launches = 0
-    radix_tiled.tile_scatter.launches = radix_tiled.tile_destinations.launches = 0
+    c0 = profiling.counters()
     out = call()
     torch.cuda.synchronize()
-    got = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches,
-           "histogram": histogram.tile_histograms.launches,
-           "radix_scatter": radix_tiled.tile_scatter.launches,
-           "radix_dest": radix_tiled.tile_destinations.launches}
+    got = launches_since(c0, "tilesort", "mergepath", "histogram", "radix_scatter", "radix_dest")
     return out, {k: v for k, v in got.items() if v}
 
 
@@ -2282,12 +2286,11 @@ def main() -> None:
     keys = random_u32(dev, N_MAIN, SEED)
     values = torch.arange(N_MAIN, dtype=torch.int32, device=dev).view(torch.uint32)
     torch.cuda.synchronize()
-    merge.tilesort.launches = 0
-    merge.mergepath_level.launches = 0
+    c0 = profiling.counters()
     backend = None if route_for("kv", N_MAIN) == "merge" else "merge"
     out_k, out_v = vt.sort_pairs(keys, values, backend=backend)
     torch.cuda.synchronize()
-    launches = {"tilesort": merge.tilesort.launches, "mergepath": merge.mergepath_level.launches}
+    launches = launches_since(c0, "tilesort", "mergepath")
     nlev = math.ceil(math.log2(N_MAIN / main_tile))
     check_kv(keys, out_k, out_v)
     phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "

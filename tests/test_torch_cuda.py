@@ -26,6 +26,7 @@ from vkradixsort_tpu_torch.ops import (
     samplesort,
     segsort,
 )
+from vkradixsort_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +38,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def launches(wrapper: str) -> int:
+    """The launch counter of a kernel wrapper, ``launch.<wrapper>``."""
+    return profiling.counters().get("launch." + wrapper, 0)
 
 
 def _planes(rng, n, nck, ncarry, dev):
@@ -76,13 +82,13 @@ def _tie_planes(rng, n, nck, ncarry, kind, dev):
 def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
     rng = np.random.default_rng(n + 10 * nck + ncarry)
     planes = _planes(rng, n, nck, ncarry, dev)
-    before = merge.tilesort.launches
+    before = launches("tilesort")
     if merge.tilesort_smem(nck, tile) > merge.smem_limits(dev)[0]:  # 16384 at three planes
         with pytest.raises(ValueError, match="shared memory"):
             merge.tilesort(planes, nck, tile)
         return
     got = merge.tilesort(planes, nck, tile)
-    assert merge.tilesort.launches == before + 1
+    assert launches("tilesort") == before + 1
     _equal(got, merge.tilesort_plain(planes, nck, tile))
 
 
@@ -94,9 +100,9 @@ def test_tilesort_kernel_matches_plain(dev, nck, ncarry, n, tile):
 def test_mergepath_kernel_matches_plain(dev, nck, ncarry, n, run):
     rng = np.random.default_rng(n + run + nck)
     runs = merge.tilesort_plain(_planes(rng, n, nck, ncarry, dev), nck, run)
-    before = merge.mergepath_level.launches
+    before = launches("mergepath_level")
     got = merge.mergepath_level(runs, nck, run)
-    assert merge.mergepath_level.launches == before + 1
+    assert launches("mergepath_level") == before + 1
     _equal(got, merge.mergepath_level_plain(runs, nck, run))
 
 
@@ -164,10 +170,10 @@ def test_kernel_path_never_takes_the_plain_versions(dev, monkeypatch):
     n = (1 << 20) + 3
     keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
-    before = (merge.tilesort.launches, merge.mergepath_level.launches)
+    before = (launches("tilesort"), launches("mergepath_level"))
     ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                            backend="merge")
-    assert merge.tilesort.launches == before[0] + 1 and merge.mergepath_level.launches > before[1]
+    assert launches("tilesort") == before[0] + 1 and launches("mergepath_level") > before[1]
     perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
@@ -237,10 +243,10 @@ def test_any_grain_the_jax_package_takes_sorts(dev, tile, backend):
     n = (1 << 24) + 77
     keys = rng.integers(0, 5000, size=n, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
-    before = merge.tilesort.launches
+    before = launches("tilesort")
     ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                            config=vt.SortConfig(tile=tile), backend=backend)
-    assert merge.tilesort.launches == before + (backend == "merge")
+    assert launches("tilesort") == before + (backend == "merge")
     perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
@@ -333,7 +339,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
     keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint64 if wide else np.uint32)
     vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32)]
     vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2}[base]]
-    before = (merge.tilesort.launches, radix_tiled.tile_scatter.launches)
+    before = (launches("tilesort"), launches("tile_scatter"))
     tk = torch.from_numpy(keys).to(dev)
     perm = np.argsort(keys, kind="stable")
     if base == "argsort":
@@ -345,7 +351,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
                                stable=base != "kv_unstable")
     else:
         ok, ov = vt.sort(tk), []
-    ran = (merge.tilesort.launches > before[0], radix_tiled.tile_scatter.launches > before[1])
+    ran = (launches("tilesort") > before[0], launches("tile_scatter") > before[1])
     assert ran == (engine == "merge", engine == "radix_tiled")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     for o, v in zip(ov, vals):
@@ -449,11 +455,11 @@ def test_histogram_and_destination_kernels_match_plain(dev, dtype, kind, n, tile
     rng = np.random.default_rng(n + tile)
     keys = torch.from_numpy(_radix_keys(rng, n, dtype, kind)).to(dev)
     for shift in range(0, 8 * keys.element_size(), 8):
-        before = (histogram.tile_histograms.launches, radix_tiled.tile_destinations.launches)
+        before = (launches("tile_histograms"), launches("tile_destinations"))
         hist = histogram.tile_histograms(keys, shift, tile)
         dest = radix_tiled.pass_destinations(keys, shift, tile)
-        assert (histogram.tile_histograms.launches,
-                radix_tiled.tile_destinations.launches) == (before[0] + 2, before[1] + 1)
+        assert (launches("tile_histograms"),
+                launches("tile_destinations")) == (before[0] + 2, before[1] + 1)
         _equal([hist, dest], [histogram.tile_histograms_plain(keys, shift, tile),
                               radix_tiled.pass_destinations_plain(keys, shift, tile)])
         base = reference.exclusive_bin_offsets(hist)
@@ -480,10 +486,10 @@ def test_scatter_kernel_matches_plain(dev, dtype, kind, n, tile, payload):
     keys_in, vals_in = keys.clone(), None if vals is None else vals.clone()
     for shift in range(0, 8 * keys.element_size(), 8):
         base = reference.exclusive_bin_offsets(histogram.tile_histograms(keys, shift, tile))
-        before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches)
+        before = (launches("tile_scatter"), launches("tile_destinations"))
         ok, ov = radix_tiled.tile_scatter(keys, vals, shift, tile, base)
-        assert (radix_tiled.tile_scatter.launches,
-                radix_tiled.tile_destinations.launches) == (before[0] + 1, before[1])
+        assert (launches("tile_scatter"),
+                launches("tile_destinations")) == (before[0] + 1, before[1])
         pk, pv = radix_tiled.tile_scatter_plain(keys, vals, shift, tile, base)
         _equal([common.bits_view(ok)], [common.bits_view(pk)])
         if vals is None:
@@ -527,9 +533,9 @@ def test_fused_kernel_matches_plain(dev, key_dtype, val_dtype, kind, n):
         vals = torch.from_numpy(rng.standard_normal(n).astype(np.float64).view(np.uint64)
                                 .astype(val_dtype)).to(dev)
     keys_in, vals_in = keys.clone(), None if vals is None else vals.clone()
-    before = fused.sort_fused.launches
+    before = launches("sort_fused")
     ok, ov = fused.sort_fused(keys, vals)
-    assert fused.sort_fused.launches == before + 1
+    assert launches("sort_fused") == before + 1
     pk, pv = fused.sort_fused_plain(keys, vals)
     _equal([common.bits_view(ok)], [common.bits_view(pk)])
     if vals is None:
@@ -554,12 +560,12 @@ def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
     for backend, n in [("radix_tiled", (1 << 20) + 3), ("fused", 30_000)]:
         keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
         vals = np.arange(n, dtype=np.uint32)
-        before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches)
+        before = (launches("tile_scatter"), launches("tile_destinations"))
         ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                                backend=backend)
         if backend == "radix_tiled":  # 4 passes, each one histogram and one scatter
-            assert (radix_tiled.tile_scatter.launches,
-                    radix_tiled.tile_destinations.launches) == (before[0] + 4, before[1])
+            assert (launches("tile_scatter"),
+                    launches("tile_destinations")) == (before[0] + 4, before[1])
         perm = np.argsort(keys, kind="stable")
         np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
         np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
@@ -646,9 +652,9 @@ def test_placement_kernel_matches_plain(dev, key_dtype, val_dtype, G, C, B, cap)
         planes.append(torch.from_numpy(gidx).to(dev))
         planes.append(torch.from_numpy(rng.standard_normal((G, C)).astype(val_dtype)).to(dev))
         fills += [(1 << 31) - 1, 0]
-    before = samplesort.place_runs.launches
+    before = launches("place_runs")
     got = samplesort.place_runs(planes, starts, lens, cap, fills)
-    assert samplesort.place_runs.launches == before + 1
+    assert launches("place_runs") == before + 1
     want = samplesort.place_runs_plain(planes, starts, lens, cap, fills)
     _equal(list(map(common.bits_view, got)), list(map(common.bits_view, want)))
 
@@ -658,9 +664,9 @@ def test_samplesort_overflow_fallback_on_the_card(dev):
     keys = torch.from_numpy(rng.zipf(1.3, size=60_000).astype(np.uint32)).to(dev)
     vals = torch.arange(60_000, dtype=torch.int32, device=dev)
     forced = dict(tile_target=1 << 14, bucket_target=1 << 12, oversample=1, slack=1.01)
-    before = samplesort.place_runs.launches
+    before = launches("place_runs")
     ok, ov, overflow = samplesort.sort_pairs_samplesort(keys, vals, _debug_overflow=True, **forced)
-    assert overflow and samplesort.place_runs.launches == before
+    assert overflow and launches("place_runs") == before
     ck, cv = samplesort.sort_pairs_samplesort(keys.cpu(), vals.cpu(), **forced)
     assert torch.equal(common.bits_view(ok).cpu(), common.bits_view(ck))
     assert torch.equal(ov.cpu(), cv)
@@ -676,18 +682,18 @@ def test_bitonic_and_samplesort_paths_never_take_the_plain_versions(dev, monkeyp
     for backend, n in [("bitonic", 1_000_003), ("samplesort", 3_000_001)]:
         keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
         vals = np.arange(n, dtype=np.uint32)
-        before = (sum(bitonic.launch_counts().values()), samplesort.place_runs.launches)
+        before = (sum(bitonic.launch_counts().values()), launches("place_runs"))
         ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                                backend=backend)
-        after = (sum(bitonic.launch_counts().values()), samplesort.place_runs.launches)
+        after = (sum(bitonic.launch_counts().values()), launches("place_runs"))
         assert after[0 if backend == "bitonic" else 1] > before[0 if backend == "bitonic" else 1]
         perm = np.argsort(keys, kind="stable")
         np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
         np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
-    before = samplesort.place_runs.launches
+    before = launches("place_runs")
     keys = rng.integers(0, 2**32, size=3_000_001, dtype=np.uint32)
     out = vt.sort(torch.from_numpy(keys).to(dev), backend="samplesort")
-    assert samplesort.place_runs.launches == before + 1  # the pipeline, not the fallback
+    assert launches("place_runs") == before + 1  # the pipeline, not the fallback
     np.testing.assert_array_equal(out.cpu().numpy(), np.sort(keys))
 
 
@@ -827,12 +833,12 @@ def test_wide_payload_merge_on_the_card_equals_plain(dev, key_dtype, payloads, n
     vals = [torch.from_numpy(rng.integers(0, 1 << 62, size=n).astype(d)) for d in payloads]
     ck = torch.from_numpy(keys)
     for descending in (False, True):
-        before = (merge.tilesort.launches, merge.mergepath_level.launches)
+        before = (launches("tilesort"), launches("mergepath_level"))
         gk, gv = vt.sort_pairs(ck.to(dev), [v.to(dev) for v in vals], backend="merge",
                                descending=descending)
         torch.cuda.synchronize()
-        assert merge.tilesort.launches == before[0] + 1
-        assert merge.mergepath_level.launches == before[1] + 2
+        assert launches("tilesort") == before[0] + 1
+        assert launches("mergepath_level") == before[1] + 2
         pk, pvs = vt.sort_pairs(ck, vals, backend="merge", descending=descending)
         assert torch.equal(common.bits_view(gk).cpu(), common.bits_view(pk))
         for g, p in zip(gv, pvs):

@@ -347,8 +347,8 @@ def test_pick_local_engine_follows_the_route_table(monkeypatch):
 
 @pytest.mark.parametrize("chunks", [1, 2])
 def test_steps_are_profiler_ranges(chunks):
-    # each step of the body runs in a record_function range, so a profiler
-    # trace gives the time by step
+    # each step of the body runs in a span, so a profiler trace gives the
+    # time by step
     from torch.profiler import ProfilerActivity, profile
 
     keys = torch.from_numpy(make_keys(np.random.default_rng(3), P * 256, np.uint32, "uniform"))
@@ -356,7 +356,7 @@ def test_steps_are_profiler_ranges(chunks):
         sort_sharded(keys, _mesh(), overlap_chunks=chunks)
     names = [e.name for e in prof.events()]
     for step in dist.STEPS:
-        assert names.count("sort_sharded/" + step) >= (chunks if step == "local sort" else 1)
+        assert names.count("vkrs/sort_sharded/" + step) >= (chunks if step == "local sort" else 1)
 
 
 def test_interleave_is_one_transposed_copy():

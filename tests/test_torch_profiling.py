@@ -1,5 +1,7 @@
-"""The PyTorch port's profiling helpers (utils/profiling.py) on the CPU: the
-four cases of tests/test_profiling.py, on torch tensors."""
+"""The PyTorch port's profiling helpers (utils/profiling.py) on the CPU:
+the cases of tests/test_profiling.py, on torch tensors, less its traffic
+estimate (the port has none). The spans and counters are tested in
+tests/test_torch_tracing.py."""
 
 import os
 
@@ -21,12 +23,6 @@ def test_timed_and_block(capsys):
 def test_log_prefix(capsys):
     profiling.log("MultiRadixSort", "GPU sort finished in", 1.23, "[ms].")
     assert capsys.readouterr().err.startswith("[MultiRadixSort]")
-
-
-def test_hbm_traffic_estimate():
-    # 4 radix passes over 1e8 u32 kv pairs: 2 * 4 * 1e8 * 8 bytes
-    assert profiling.hbm_traffic_estimate(10**8, 4, passes=4, kv=True) == 64 * 10**8
-    assert profiling.hbm_traffic_estimate(10, 4) == 80
 
 
 def test_trace_writes_dir(tmp_path):

@@ -30,6 +30,7 @@ from vkradixsort_tpu.ops import histogram as jhistogram
 from vkradixsort_tpu.ops import radix_tiled as jradix_tiled
 from vkradixsort_tpu.ops import reference as jreference
 from vkradixsort_tpu_torch.ops import common, fused, histogram, radix_tiled, reference
+from vkradixsort_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -37,6 +38,11 @@ JCFG = vk.SortConfig(interpret=True)
 TILE = 2048
 N_SLICE = 3001  # one ragged size for every JAX radix_tiled call: one compile per key width
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def launches(wrapper: str) -> int:
+    """The launch counter of a kernel wrapper, ``launch.<wrapper>``."""
+    return profiling.counters().get("launch." + wrapper, 0)
 
 
 def _keys(seed: int, n: int, dtype, kind: str) -> np.ndarray:
@@ -168,11 +174,11 @@ def jax_histograms():
 @pytest.mark.parametrize("case", HIST_CASES, ids=lambda c: f"{c[0].__name__}-{c[1]}-{c[2]}-{c[3]}")
 def test_tile_histograms_match_jax(jax_histograms, case):
     keys, want = jax_histograms[case]
-    before = histogram.tile_histograms.launches
+    before = launches("tile_histograms")
     got = histogram.tile_histograms(_t(keys), case[2], TILE)
     assert got.dtype == torch.int32
     _eq(got, want)
-    assert histogram.tile_histograms.launches == before  # CPU: the plain version
+    assert launches("tile_histograms") == before  # CPU: the plain version
 
 
 def test_tile_histograms_plain_at_other_tiles():
@@ -210,12 +216,12 @@ def jax_destinations():
 @pytest.mark.parametrize("case", DEST_CASES, ids=lambda c: f"{c[0].__name__}-{c[1]}-{c[2]}-{c[3]}")
 def test_pass_destinations_match_jax(jax_destinations, case):
     keys, want = jax_destinations[case]
-    before = radix_tiled.tile_destinations.launches
+    before = launches("tile_destinations")
     got = radix_tiled.pass_destinations(_t(keys), case[2], TILE)
     assert got.dtype == torch.int32
     _eq(got, want)
     _eq(radix_tiled.pass_destinations_plain(_t(keys), case[2], TILE), want)
-    assert radix_tiled.tile_destinations.launches == before
+    assert launches("tile_destinations") == before
 
 
 @pytest.mark.parametrize("tile", [1, 32, 100, 4096])
@@ -271,8 +277,8 @@ def jax_passes():
 def test_radix_pass_tiled_matches_jax(jax_passes, i):
     keys, vals, jk, jv = jax_passes[i]
     shift, tile = PASS_CASES[i][2:4]
-    before = (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches,
-              histogram.tile_histograms.launches)
+    before = (launches("tile_scatter"), launches("tile_destinations"),
+              launches("tile_histograms"))
     tk, tv = _t(keys), None if vals is None else _t(vals)
     ok, ov = radix_tiled.radix_pass_tiled(tk, tv, shift, tile)
     _eq(ok, jk)
@@ -282,8 +288,8 @@ def test_radix_pass_tiled_matches_jax(jax_passes, i):
         _eq(ov, jv)
         _eq(tv, vals)  # the input is not written
     _eq(tk, keys)
-    assert (radix_tiled.tile_scatter.launches, radix_tiled.tile_destinations.launches,
-            histogram.tile_histograms.launches) == before  # CPU: the plain versions
+    assert (launches("tile_scatter"), launches("tile_destinations"),
+            launches("tile_histograms")) == before  # CPU: the plain versions
 
 
 def test_sort_radix_tiled_matches_jax():
@@ -346,7 +352,7 @@ def jax_fused():
                               for c in FUSED_CASES])
 def test_sort_fused_matches_jax(jax_fused, i):
     keys, vals, jk, jv = jax_fused[i]
-    before = fused.sort_fused.launches
+    before = launches("sort_fused")
     tk = _t(keys)
     tv = None if vals is None else _t(vals)
     ok, ov = fused.sort_fused(tk, tv, vt.SortConfig())
@@ -357,7 +363,7 @@ def test_sort_fused_matches_jax(jax_fused, i):
         _eq(ov, jv)
         _eq(tv, vals)  # the input is not written
     _eq(tk, keys)
-    assert fused.sort_fused.launches == before
+    assert launches("sort_fused") == before
 
 
 # ---------------------------------------------------------------------------

@@ -75,10 +75,10 @@ import torch
 
 import vkradixsort_tpu_torch as vt
 from vkradixsort_tpu_torch import native
-from vkradixsort_tpu_torch.ops import bitonic, dispatch, fused, histogram, merge, radix_tiled
-from vkradixsort_tpu_torch.ops import samplesort
+from vkradixsort_tpu_torch.ops import dispatch
 from vkradixsort_tpu_torch.ops.common import bits_view
 from vkradixsort_tpu_torch.ops.segsort import to_signed_order
+from vkradixsort_tpu_torch.utils import profiling
 from vkradixsort_tpu_torch.utils.timing import _srl, measure_pairs_seconds_per_call, remix
 
 REFERENCE_KEYS_PER_S = 52.7e6  # reference README.md:256, as in bench.py
@@ -86,10 +86,6 @@ SEED = 0xBE7C
 N_SMALL = 1_000_000
 WINDOWS, WINDOW_WIDTH = 16, 1024
 HIST_BINS = 4096
-# every kernel wrapper's launch counter: the log of the N sort names those it ran
-COUNTED = (histogram.tile_histograms, radix_tiled.tile_scatter, radix_tiled.tile_destinations,
-           merge.tilesort, merge.mergepath_level, fused.sort_fused, bitonic.block_pass,
-           bitonic.global_group, bitonic.gather_payload, samplesort.place_runs)
 _PROBE = """
 import sys, torch
 if not torch.cuda.is_available():
@@ -202,9 +198,10 @@ def window_oracle_checks(out_k: torch.Tensor, out_v: torch.Tensor, keys_np: np.n
 def kernel_launches(call):
     """``call()`` and the launches each kernel wrapper made in it, those
     that made any: (result, {wrapper name: launches})."""
-    before = [w.launches for w in COUNTED]
+    before = profiling.counters()
     out = call()
-    return out, {w.__name__: w.launches - b for w, b in zip(COUNTED, before) if w.launches > b}
+    return out, {k.removeprefix("launch."): n for k, n in profiling.since(before).items()
+                 if k.startswith("launch.")}
 
 
 def _cpu_seconds_per_call(f, keys, values, reps: int = 5, warmup: int = 2) -> float:

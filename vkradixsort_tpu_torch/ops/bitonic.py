@@ -53,6 +53,7 @@ import torch
 
 from vkradixsort_tpu_torch.ops import kernels, merge
 from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view
+from vkradixsort_tpu_torch.utils import profiling
 
 LANES = 128
 MIN_PADDED = LANES * 8  # the JAX kernel's smallest (8, 128) block
@@ -430,10 +431,7 @@ def block_pass(in_planes: list, work: torch.Tensor, n: int, tile: int, bp: Block
     ptrs = [p.data_ptr() for p in in_planes] + [0] * (2 - len(in_planes))
     kernels.call("bitonic_block", work.device, ptrs[0], ptrs[1], work.data_ptr(), nk,
                  n, npad, tile, int(bp.first), _packed(bp.stages), len(bp.stages))
-    block_pass.launches += 1
-
-
-block_pass.launches = 0
+    profiling.count("launch.block_pass")
 
 
 @functools.lru_cache(maxsize=256)
@@ -448,10 +446,7 @@ def global_group(work: torch.Tensor, g: GlobalGroup) -> None:
     in one launch."""
     nk, npad = work.shape[0] - 1, work.shape[1]
     kernels.call("bitonic_group", work.device, work.data_ptr(), nk, npad, g.level, g.top, g.r)
-    global_group.launches += 1
-
-
-global_group.launches = 0
+    profiling.count("launch.global_group")
 
 
 def gather_payload(v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -459,11 +454,8 @@ def gather_payload(v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(v)
     kernels.call("bitonic_gather", v.device, v.data_ptr(), pos.data_ptr(), out.data_ptr(),
                  v.shape[0], v.element_size())
-    gather_payload.launches += 1
+    profiling.count("launch.gather_payload")
     return out
-
-
-gather_payload.launches = 0
 
 
 def bitonic_sort_block(keys: torch.Tensor, values: tuple = (), stable: bool = False):
@@ -526,9 +518,6 @@ def network(key_planes: list, values: list, tile: int | None = None):
 
 def launch_counts() -> dict:
     """The launch counters of the three bitonic kernels."""
-    return {"block": block_pass.launches, "global": global_group.launches,
-            "gather": gather_payload.launches}
-
-
-def reset_launch_counts() -> None:
-    block_pass.launches = global_group.launches = gather_payload.launches = 0
+    c = profiling.COUNTERS
+    return {"block": c.get("launch.block_pass", 0), "global": c.get("launch.global_group", 0),
+            "gather": c.get("launch.gather_payload", 0)}

@@ -28,6 +28,10 @@ operation, key width and size, as measured on the H100); CPU tensors take
 samplesort. Every entry point is stable, ``sort_pairs(stable=False)`` too,
 and bitwise-exact against the JAX package's stable results on the same
 inputs.
+
+Each entry point runs in the span ``vkrs/<entry point>`` and the engine a
+call takes in ``vkrs/engine/<engine>`` (``utils/profiling.span``); each
+call where the dispatcher chose an engine counts one ``route.<engine>``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from vkradixsort_tpu_torch.ops.common import (
     sortable_dtype,
     take,
 )
+from vkradixsort_tpu_torch.utils import profiling
 
 ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
 
@@ -150,7 +155,9 @@ def _encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
 
 
 def _sort_encoded_keys(keys, vals, config, path, descending):
-    out_k, out_vs = _sort_encoded(_encode(keys, descending), vals, config, path)
+    enc = _encode(keys, descending)
+    with profiling.span("vkrs/engine/" + path):
+        out_k, out_vs = _sort_encoded(enc, vals, config, path)
     if descending:
         out_k = complement(out_k)
     return decode_keys(out_k, keys.dtype), out_vs
@@ -171,15 +178,17 @@ def sort(
     bit-complemented before and after an ascending stable sort. 2-D keys
     sort every row (:func:`sort_segments`).
     """
-    if keys.dim() == 2:
-        if backend is not None:
-            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
-        return sort_segments(keys, descending=descending)
-    if keys.dim() != 1:
-        raise ValueError(f"sort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
-    path = _route(keys, backend)
-    out, _ = _sort_encoded_keys(keys, (), config, path, descending)
-    return out
+    with profiling.span("vkrs/sort"):
+        if keys.dim() == 2:
+            if backend is not None:
+                raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+            return sort_segments(keys, descending=descending)
+        if keys.dim() != 1:
+            raise ValueError(f"sort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
+        path = _route(keys, backend)
+        profiling.count("route." + path)
+        out, _ = _sort_encoded_keys(keys, (), config, path, descending)
+        return out
 
 
 def sort_pairs(
@@ -205,22 +214,25 @@ def sort_pairs(
     and 4-byte payload in one 64-bit sort key) lost to the stable carry at
     every size on the H100, so it is not ported (PERF.md section 5).
     """
-    multi = isinstance(values, (tuple, list))
-    vals = tuple(values) if multi else (values,)
-    if keys.dim() == 2:
-        if backend is not None:
-            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
-        return sort_segments(keys, values, descending=descending)
-    if keys.dim() != 1 or any(v.shape[:1] != keys.shape[:1] or v.dim() != 1 for v in vals):
-        raise ValueError(
-            "sort_pairs expects matching 1-D tensors, got "
-            f"{tuple(keys.shape)} / {[tuple(v.shape) for v in vals]}"
-        )
-    if any(v.device != keys.device for v in vals):
-        raise ValueError("keys and values must lie on one device")
-    path = _route(keys, backend, vals, "kv_unstable" if not stable and len(vals) == 1 else "kv")
-    out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
-    return out_k, (type(values)(out_vs) if multi else out_vs[0])
+    with profiling.span("vkrs/sort_pairs"):
+        multi = isinstance(values, (tuple, list))
+        vals = tuple(values) if multi else (values,)
+        if keys.dim() == 2:
+            if backend is not None:
+                raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+            return sort_segments(keys, values, descending=descending)
+        if keys.dim() != 1 or any(v.shape[:1] != keys.shape[:1] or v.dim() != 1 for v in vals):
+            raise ValueError(
+                "sort_pairs expects matching 1-D tensors, got "
+                f"{tuple(keys.shape)} / {[tuple(v.shape) for v in vals]}"
+            )
+        if any(v.device != keys.device for v in vals):
+            raise ValueError("keys and values must lie on one device")
+        path = _route(keys, backend, vals,
+                      "kv_unstable" if not stable and len(vals) == 1 else "kv")
+        profiling.count("route." + path)
+        out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
+        return out_k, (type(values)(out_vs) if multi else out_vs[0])
 
 
 def argsort(
@@ -240,18 +252,22 @@ def argsort(
     planes and positions), so it needs no twin of its own. 2-D keys give
     each row's permutation, from ``torch.sort(dim=1)``.
     """
-    if keys.dim() == 2:
-        if backend is not None:
-            raise ValueError("2-D keys route to sort_segments; backend= does not apply")
-        return segsort.argsort_segments(_encode(keys, descending))
-    if keys.dim() != 1:
-        raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
-    path = _route(keys, backend, op="argsort")
-    if path == "tiled":
-        return tiled.argsort_tiled(_encode(keys, descending))
-    idx = positions(keys.shape[0], keys.device)
-    _, (perm,) = _sort_encoded_keys(keys, (idx,), config, path, descending)
-    return perm
+    with profiling.span("vkrs/argsort"):
+        if keys.dim() == 2:
+            if backend is not None:
+                raise ValueError("2-D keys route to sort_segments; backend= does not apply")
+            return segsort.argsort_segments(_encode(keys, descending))
+        if keys.dim() != 1:
+            raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
+        path = _route(keys, backend, op="argsort")
+        profiling.count("route." + path)
+        if path == "tiled":
+            enc = _encode(keys, descending)
+            with profiling.span("vkrs/engine/tiled"):
+                return tiled.argsort_tiled(enc)
+        idx = positions(keys.shape[0], keys.device)
+        _, (perm,) = _sort_encoded_keys(keys, (idx,), config, path, descending)
+        return perm
 
 
 def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
@@ -262,16 +278,17 @@ def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
     ``sorted_keys`` or ``(sorted_keys, permuted_values)`` with the container
     type kept.
     """
-    if keys.dim() != 2:
-        raise ValueError(f"sort_segments expects 2-D keys, got {tuple(keys.shape)}")
-    multi = isinstance(values, (tuple, list))
-    vals = () if values is None else (tuple(values) if multi else (values,))
-    if any(v.shape != keys.shape for v in vals):
-        raise ValueError("sort_segments payloads must have the keys' shape")
-    out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
-    if descending:
-        out_enc = complement(out_enc)
-    out_k = decode_keys(out_enc, keys.dtype)
-    if values is None:
-        return out_k
-    return out_k, (type(values)(out_vs) if multi else out_vs[0])
+    with profiling.span("vkrs/sort_segments"):
+        if keys.dim() != 2:
+            raise ValueError(f"sort_segments expects 2-D keys, got {tuple(keys.shape)}")
+        multi = isinstance(values, (tuple, list))
+        vals = () if values is None else (tuple(values) if multi else (values,))
+        if any(v.shape != keys.shape for v in vals):
+            raise ValueError("sort_segments payloads must have the keys' shape")
+        out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
+        if descending:
+            out_enc = complement(out_enc)
+        out_k = decode_keys(out_enc, keys.dtype)
+        if values is None:
+            return out_k
+        return out_k, (type(values)(out_vs) if multi else out_vs[0])

@@ -15,6 +15,7 @@ import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig
 from vkradixsort_tpu_torch.ops import kernels, reference
+from vkradixsort_tpu_torch.utils import profiling
 
 # Most keys the kernel takes (csrc/fused.cu kFusedMaxN): positions fit 15
 # bits, and the array fits the shared memory of the kernel's cluster.
@@ -64,11 +65,8 @@ def sort_fused(enc: torch.Tensor, values=None, config: SortConfig = DEFAULT_CONF
         keys_in.data_ptr(), _ptr(vals_in), keys_out.data_ptr(), _ptr(vals_out),
         n, enc.element_size(), 0 if values is None else values.element_size(),
     )
-    sort_fused.launches += 1
+    profiling.count("launch.sort_fused")
     return keys_out, vals_out
-
-
-sort_fused.launches = 0
 
 
 def _ptr(t):

@@ -16,6 +16,7 @@ import torch
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
 from vkradixsort_tpu_torch.ops import kernels, reference
 from vkradixsort_tpu_torch.ops.common import NUM_BINS, cdiv, extract_digit
+from vkradixsort_tpu_torch.utils import profiling
 
 
 def check_digit_input(enc: torch.Tensor, shift: int, tile: int) -> None:
@@ -61,8 +62,5 @@ def tile_histograms(enc: torch.Tensor, shift: int,
     out = torch.empty((cdiv(n, tile), NUM_BINS), dtype=torch.int32, device=enc.device)
     if n:
         kernels.call("histogram", enc.device, x.data_ptr(), n, stride, sh, tile, out.data_ptr())
-        tile_histograms.launches += 1
+        profiling.count("launch.tile_histograms")
     return out
-
-
-tile_histograms.launches = 0

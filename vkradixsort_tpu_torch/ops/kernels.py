@@ -18,8 +18,11 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
+
+from vkradixsort_tpu_torch.utils import profiling
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -54,10 +57,19 @@ def library_path() -> pathlib.Path:
 def build() -> pathlib.Path:
     """Compile the kernels unless the library for these sources exists.
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library with the suffix ``.log``."""
+    per kernel) is kept beside the library with the suffix ``.log``. A
+    build runs in the span ``vkrs/kernels/build`` and counts one
+    ``kernels.builds``."""
     out = library_path()
     if out.exists():
         return out
+    with profiling.span("vkrs/kernels/build"):
+        _compile(out)
+    profiling.count("kernels.builds")
+    return out
+
+
+def _compile(out: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
@@ -82,12 +94,13 @@ def build() -> pathlib.Path:
             raise RuntimeError(f"kernel link failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
         out.with_suffix(".log").write_text("\n".join(log))
         os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
+    """The kernel library, built on first call; its seconds, build
+    included, add to the counter ``kernels.load_s``."""
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ints = ctypes.POINTER(ctypes.c_int)
@@ -111,6 +124,7 @@ def load() -> ctypes.CDLL:
         fn.restype = i32
     lib.vkrs_error_string.argtypes = [i32]
     lib.vkrs_error_string.restype = ctypes.c_char_p
+    profiling.count("kernels.load_s", time.perf_counter() - t0)
     return lib
 
 

@@ -35,6 +35,7 @@ import torch
 from vkradixsort_tpu_torch.engine.context import GPUContext
 from vkradixsort_tpu_torch.ops import kernels
 from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view, cdiv, take
+from vkradixsort_tpu_torch.utils import profiling
 
 # Shared memory on an H100 (sm_90): what one block may opt into, what one SM
 # holds, and what the runtime reserves for every resident block. CPU tensors
@@ -202,11 +203,8 @@ def tilesort(planes: list, nck: int, tile: int) -> list:
     n = planes[0].numel()
     if n:
         kernels.launch("tilesort", planes, outs, nck, n, tile)
-        tilesort.launches += 1
+        profiling.count("launch.tilesort")
     return outs
-
-
-tilesort.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -311,11 +309,8 @@ def mergepath_level(planes: list, nck: int, run: int, *, out_tile: int | None = 
     n = planes[0].numel()
     if n:
         kernels.launch("mergepath", planes, outs, nck, n, run, out_tile)
-        mergepath_level.launches += 1
+        profiling.count("launch.mergepath_level")
     return outs
-
-
-mergepath_level.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from vkradixsort_tpu_torch.ops.common import (
     extract_digit,
     num_passes,
 )
+from vkradixsort_tpu_torch.utils import profiling
 
 PAYLOAD_BYTES = (1, 2, 4, 8)  # payload widths the scatter kernel moves
 
@@ -84,11 +85,8 @@ def tile_destinations(enc: torch.Tensor, shift: int, tile: int,
     if n:
         kernels.call("radix_dest", enc.device, x.data_ptr(), n, stride, sh, tile,
                      base.data_ptr(), dest.data_ptr())
-        tile_destinations.launches += 1
+        profiling.count("launch.tile_destinations")
     return dest
-
-
-tile_destinations.launches = 0
 
 
 def tile_scatter_plain(enc: torch.Tensor, values, shift: int, tile: int, base: torch.Tensor):
@@ -127,11 +125,8 @@ def tile_scatter(enc: torch.Tensor, values, shift: int, tile: int, base: torch.T
                      0 if values is None else values.data_ptr(),
                      0 if values is None else values.element_size(), n, shift, tile,
                      base.data_ptr(), out_k.data_ptr(), 0 if out_v is None else out_v.data_ptr())
-        tile_scatter.launches += 1
+        profiling.count("launch.tile_scatter")
     return out_k, out_v
-
-
-tile_scatter.launches = 0
 
 
 def pass_destinations_plain(enc: torch.Tensor, shift: int, tile: int = DEFAULT_CONFIG.chunk):
@@ -153,11 +148,17 @@ def pass_destinations(enc: torch.Tensor, shift: int,
 
 def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = DEFAULT_CONFIG.chunk):
     """One stable radix pass of the keys and ``values`` (or None): the
-    histogram, the scan, then the rank and the move in one kernel. Returns
+    histogram, the scan, then the rank and the move in one kernel, each in
+    its span (``vkrs/radix/histogram``, ``scan``, ``scatter``). Returns
     ``(out_keys, out_values)``."""
     _check_input(enc, shift, tile)
-    base = reference.exclusive_bin_offsets(histogram.tile_histograms(enc, shift, tile))
-    return tile_scatter(enc, values, shift, tile, base)
+    with profiling.span("vkrs/radix/histogram"):
+        hist = histogram.tile_histograms(enc, shift, tile)
+    with profiling.span("vkrs/radix/scan"):
+        base = reference.exclusive_bin_offsets(hist)
+    del hist  # free the counts before the scatter allocates its outputs
+    with profiling.span("vkrs/radix/scatter"):
+        return tile_scatter(enc, values, shift, tile, base)
 
 
 def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):

@@ -45,6 +45,7 @@ from vkradixsort_tpu_torch.ops.common import (
     round_up,
     signed_bits,
 )
+from vkradixsort_tpu_torch.utils import profiling
 
 LANES = 128
 _GMAX = (1 << 31) - 1  # gidx of padding and fill: after every real position
@@ -113,11 +114,8 @@ def place_runs(rows: list, starts: torch.Tensor, lens: torch.Tensor, cap: int,
                  kernels.u64s(fills), len(rows), rows[0].element_size(),
                  rows[-1].element_size() if len(rows) == 3 else 0,
                  starts.data_ptr(), lens.data_ptr(), G, C, B, cap)
-    place_runs.launches += 1
+    profiling.count("launch.place_runs")
     return outs
-
-
-place_runs.launches = 0
 
 
 # ---------------------------------------------------------------------------

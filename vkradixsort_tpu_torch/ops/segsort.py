@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from vkradixsort_tpu_torch.ops.common import _MIN32, _MIN64, take
+from vkradixsort_tpu_torch.utils import profiling
 
 _SIGNED_OF = {torch.uint32: torch.int32, torch.uint64: torch.int64}
 
@@ -44,9 +45,16 @@ def sort_flat_pairs(enc: torch.Tensor, values: tuple = ()):
     """Stable flat sort of uint32/uint64-encoded keys, carrying ``values``:
     one ``torch.sort`` and one gather a payload, 64-bit keys too (the
     former two chained 32-bit passes took 29.2 ms against 17.1 at 1e8 u64
-    kv on the H100, PERF.md section 5)."""
-    s, perm = torch.sort(to_signed_order(enc), stable=True)
-    return from_signed_order(s, enc.dtype), tuple(take(v, perm) for v in values)
+    kv on the H100, PERF.md section 5). Spans: ``vkrs/tiled/sort``, then
+    ``vkrs/tiled/gather`` a payload."""
+    with profiling.span("vkrs/tiled/sort"):
+        s, perm = torch.sort(to_signed_order(enc), stable=True)
+        out = from_signed_order(s, enc.dtype)
+    gathered = []
+    for v in values:
+        with profiling.span("vkrs/tiled/gather"):
+            gathered.append(take(v, perm))
+    return out, tuple(gathered)
 
 
 def narrow_indices(perm: torch.Tensor, n: int) -> torch.Tensor:
@@ -59,9 +67,11 @@ def narrow_indices(perm: torch.Tensor, n: int) -> torch.Tensor:
 
 def argsort_flat(enc: torch.Tensor) -> torch.Tensor:
     """Stable argsort of uint32/uint64-encoded keys: the permutation of one
-    stable ``torch.sort``, with no payload to gather."""
-    _, perm = torch.sort(to_signed_order(enc), stable=True)
-    return narrow_indices(perm, enc.shape[0])
+    stable ``torch.sort``, with no payload to gather (span
+    ``vkrs/tiled/sort``)."""
+    with profiling.span("vkrs/tiled/sort"):
+        _, perm = torch.sort(to_signed_order(enc), stable=True)
+        return narrow_indices(perm, enc.shape[0])
 
 
 def sort_segments(enc2d: torch.Tensor, values2d: tuple = ()):

@@ -39,9 +39,9 @@ in turn, payloads gathered), or "merge", the merge engine's tile-sort and
 merge-path kernels with gidx as a compare plane (``ops/merge.py``). The
 final sort of what a shard received runs on the same engine.
 
-Each step of the body runs inside a ``torch.profiler.record_function``
-range named ``sort_sharded/<step>`` (:data:`STEPS`), so a profiler trace
-gives the device time by step.
+Each step of the body runs in a span (``utils/profiling.span``) named
+``vkrs/sort_sharded/<step>`` (:data:`STEPS`), so a profiler trace gives the
+device time by step.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ from vkradixsort_tpu_torch.ops.common import (
 )
 from vkradixsort_tpu_torch.ops.segsort import from_signed_order, to_signed_order
 from vkradixsort_tpu_torch.parallel.mesh import GroupMesh, GroupMesh2D, LocalMesh, LocalMesh2D
+from vkradixsort_tpu_torch.utils import profiling
 
 __all__ = ["sort_sharded", "gather_sorted", "sort_distributed", "LocalMesh", "GroupMesh",
            "LocalMesh2D", "GroupMesh2D"]
@@ -71,7 +72,7 @@ STEPS = ("interleave", "local sort", "splitters", "send build", "exchange", "fin
 
 
 def _step(name: str):
-    return torch.profiler.record_function("sort_sharded/" + name)
+    return profiling.span("vkrs/sort_sharded/" + name)
 
 
 def _quantile_positions(n: int, m: int, device) -> torch.Tensor:

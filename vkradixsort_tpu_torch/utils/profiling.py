@@ -12,8 +12,12 @@ component prefix; here:
     the yielded dict (for throwaway measurements; ``utils/timing.py`` times
     device work by CUDA events);
   * ``log(component, ...)``: ``[Component] message`` lines on stderr;
-  * ``hbm_traffic_estimate(...)``: the bytes a sort must move, for roofline
-    checks against a measured time.
+  * ``span(name)``: the program's spans, ``vkrs/<layer>/<step>`` ranges on
+    the profiler's timeline (host and device on one clock), entered only
+    while a profiler runs;
+  * ``count(name, n)``, ``counters()``, ``since(before)``: the program's
+    counters (``route.<engine>``, ``launch.<kernel wrapper>``,
+    ``kernels.builds``, ``kernels.load_s``), always on.
 """
 
 from __future__ import annotations
@@ -22,11 +26,44 @@ import contextlib
 import os
 import pathlib
 import sys
+import threading
 import time
 
 import torch
 
 DEFAULT_TRACE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "trace"
+_OFF = contextlib.nullcontext()
+
+# name -> running total; every process starts from nothing
+COUNTERS: dict[str, float] = {}
+_COUNTING = threading.Lock()  # sorts may run on several threads at once
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs, else a shared no-op context: with no profiler a span
+    costs a flag test, under a microsecond, where an unguarded range takes
+    over ten. Name spans ``vkrs/<layer>/<step>``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _COUNTING:
+        COUNTERS[name] = COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A snapshot of every counter."""
+    with _COUNTING:
+        return dict(COUNTERS)
+
+
+def since(before: dict) -> dict:
+    """The counters that moved since the snapshot ``before``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in counters().items() if v != before.get(k, 0)}
 
 
 def log(component: str, *message) -> None:
@@ -82,11 +119,3 @@ def timed(label: str, component: str = "vkradixsort"):
     block(list(out.values()))
     out["seconds"] = time.perf_counter() - t0
     log(component, f"{label} finished in {out['seconds'] * 1e3:.3f} ms")
-
-
-def hbm_traffic_estimate(n: int, itemsize: int, *, passes: int = 1, kv: bool = False) -> int:
-    """Lower-bound device-memory bytes for ``passes`` read+write sweeps over
-    the data. For roofline checks: measured time >= estimate / bandwidth,
-    3.35 TB/s on an H100 SXM (NVIDIA data sheet)."""
-    width = itemsize * (2 if kv else 1)
-    return 2 * passes * n * width
