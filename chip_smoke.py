@@ -27,9 +27,10 @@ package's bench checks its 1e8 sort.
      compare planes too (u64 keys with ties and dtype-max keys, and a gidx
      plane, ragged, 0-2 carries), the histogram
      kernel, the rank-and-scatter kernel in both its modes (destinations
-     only; keys and payloads of 0, 1, 2, 4 and 8 bytes moved) and the fused
-     sort on ragged sizes, ties, keys equal to the dtype's maximum, tiles
-     taken in one round and in two, and both key widths;
+     only; keys and payloads of 0, 1, 2, 4 and 8 bytes moved), the onesweep
+     sort's digit histogram and every pass and the fused sort on ragged
+     sizes, ties, keys equal to the dtype's maximum, tiles taken in one
+     round and in two, and both key widths;
   4. the merge path: sort 1e6 pairs exactly against numpy's stable argsort,
      then 1e8 pairs with an exact check on the device, counting each
      kernel's launches;
@@ -39,22 +40,27 @@ package's bench checks its 1e8 sort.
      whole and in 16 windows and every payload on the device, bitwise
      against the host runtime's stable argsort, tile-sort and merge-path
      launches counted, timed in turns against ``backend="tiled"``;
-  5. the radix_tiled path: the same at 1e6 and 1e8 (4 histogram and 4
-     rank-and-scatter launches, no destination-only launch); the 1e8
+  5. the radix_tiled path: the same at 1e6 and 1e8 (the onesweep sort: 1
+     digit-histogram and 4 pass launches, none of the per-pass API's); the 1e8
      sort's whole output on the host, bitwise against the host runtime's
      stable argsort (keys against ``keys[perm]``, values against ``perm``),
      and in ``bench.py``'s 16 windows of 1024, both ends included; the
      oracle's time at 1e8 and 1e7 beside numpy's stable argsort at 1e7,
      with the host's CPU model; a profiler
-     trace of the 1e8 sort (its kernels by name: no torch indexing or
-     scatter, no dtype conversion), each pass's histogram kernel and both
-     modes of the rank-and-scatter kernel held bitwise against their plain
-     versions on that sort's own intermediate keys and timed beside them
-     (histogram, scan, rank-and-scatter, per pass), with the pass's library
-     answer (a stable ``torch.sort`` of its 8-bit digit and the gathers of
-     keys and values) bitwise equal to it and timed, the peak device memory
-     of the sort, and the chunk swept (2048 to 16384: the kernels by pass
-     and the whole sort in turns, results bitwise equal);
+     trace of the 1e8 sort (its kernels by name: one digit histogram and 4
+     onesweep passes; no torch indexing or scatter, no dtype conversion),
+     the peak device memory and the time of the sort; the onesweep sort by
+     kernel: the digit histogram and each pass bitwise against their plain
+     versions on the pass's own input and timed beside their bounds, their
+     plain versions and the pass's library answer (a stable ``torch.sort``
+     of its 8-bit digit and the gathers of keys and values, bitwise equal),
+     with the pass kernel's shape and blocks resident on each SM; then the
+     per-pass API (the JAX package's twins, off the sort route): each
+     pass's histogram kernel and both modes of the rank-and-scatter kernel
+     held bitwise against their plain versions on that sort's own
+     intermediate keys and timed beside them (histogram, scan,
+     rank-and-scatter, per pass), with the same library answer, and its
+     chunk swept (2048 to 16384, the kernels by pass);
   6. the fused path at N = 32768: u32 pairs, then u64 keys with a u64
      payload, one launch each, bitwise against numpy, and timed steadied
      (batches of 100 back-to-back calls) beside ``torch.sort`` plus the
@@ -71,10 +77,11 @@ package's bench checks its 1e8 sort.
      2, 3 and 4 planes (u32 keys; u32 kv; u32 kv with two payloads and u64
      keys; u64 keys with a u64 payload), results bitwise equal across
      tiles; the co-rank mirror ``coranks_plain``
-     against the merge kernel's own splits at one 1e8 level; and at
+     against the merge kernel's own splits at one 1e8 level; at
      n = 2^31 + 4097 (one key plane) the tile sort's last tiles and one
      merge level's last run pairs bitwise against their plain versions run
-     on those slices alone;
+     on those slices alone; and the onesweep sort at n = 2^31 - 1 (u32 keys
+     n - 1 - i to arange, bitwise);
   8. the bitonic path: its kernels bitwise against their plain version on
      ragged sizes below one tile, one tile, sizes that need global groups
      and levels that end on every remainder of their global distances
@@ -142,11 +149,12 @@ package's bench checks its 1e8 sort.
      keys (BASELINE.json config 4 at the bench size), argsort of u32 and of
      u64 Zipf keys, ``stable=False`` u32 kv, the two kv sorts' keys also on
      the host, whole and in 16 windows, bitwise against the host runtime's
-     radix oracle sort; then each of the 8 passes of a
-     radix_tiled sort of the u64 Zipf keys, and of uniform u64 keys, on the
-     sort's own intermediate keys: the histogram and rank-and-scatter
-     kernels bitwise against their plain versions, timed beside their
-     bounds, with the share of the pass's most common digit;
+     radix oracle sort; then each of the 8 passes of the per-pass API's
+     sort of the u64 Zipf keys, and of uniform u64 keys, on the sort's own
+     intermediate keys: the histogram and rank-and-scatter kernels bitwise
+     against their plain versions, timed beside their bounds, with the share
+     of the pass's most common digit; and the onesweep sort of the same keys
+     by kernel, as in phase 5;
  13. the reference's own fixtures from the host runtime (1e6 mt19937 keys
      in its 28-bit range, and the descending sequence) through
      ``sort_pairs`` on the default route and on radix_tiled, bitwise
@@ -159,7 +167,8 @@ package's bench checks its 1e8 sort.
 
 With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
 (``route_crossovers`` of phase 10, ``dist_local_crossovers`` of phase 11,
-``radix_passes_u64`` of phase 12), for repeated runs, and prints no JSON
+``radix_passes_u64`` of phase 12, the onesweep's parts on u64 keys
+included), for repeated runs, and prints no JSON
 line. Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
 error against its plain version, its time, its plain version's time, the
@@ -173,9 +182,10 @@ payload sorts, and their ms at two and three compare planes on one
 shard); the
 bitonic and fused entries also quote their times before their redesign and the radix_dest
 entry the parts it replaced (destinations, widening, torch scatter), from
-PERF.md, as text; the histogram and radix_dest entries add their 8 passes'
-ms on the 1e8 u64 Zipf sort with its bound, and on uniform u64 keys, and
-their launches in phase 14's benchmark run. The last is the run's JSON
+PERF.md, as text; the histogram and radix_dest entries (the per-pass API,
+off the sort route) and the digit_histograms and onesweep_pass entries (the
+sort route) add their ms on the 1e8 u64 Zipf sort with its bound, and on
+uniform u64 keys, and their launches in phase 14's benchmark run. The last is the run's JSON
 result. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -234,6 +244,7 @@ PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (
 # this script's names for the kernel wrappers' launch counters (launch.<wrapper>)
 LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "tile_histograms",
           "radix_scatter": "tile_scatter", "radix_dest": "tile_destinations",
+          "digit_histograms": "digit_histograms", "onesweep": "onesweep_pass",
           "fused": "sort_fused", "placement": "place_runs"}
 
 
@@ -554,11 +565,12 @@ def radix_payload(rng, n: int, dtype):
 
 
 def compare_radix_kernels(dev, rng) -> dict:
-    """The histogram kernel, both modes of the rank-and-scatter kernel and
-    the fused kernel against their plain versions on ragged sizes, ties,
-    dtype-max keys, both key widths, payloads of 0, 1, 2, 4 and 8 bytes and
-    tiles taken in one round and in two."""
-    err = {"histogram": 0, "radix_dest": 0, "fused": 0}
+    """The histogram kernel, both modes of the rank-and-scatter kernel, the
+    onesweep sort's two kernels (every pass) and the fused kernel against
+    their plain versions on ragged sizes, ties, dtype-max keys, both key
+    widths, payloads of 0, 1, 2, 4 and 8 bytes and tiles taken in one round
+    and in two."""
+    err = {"histogram": 0, "radix_dest": 0, "onesweep": 0, "fused": 0}
     for n, tile, dtype, kind, vdt in [(5 * 2048 + 17, 2048, np.uint32, "ties", np.uint16),
                                       (300_001, 2048, np.uint64, "max", np.uint64),
                                       (3001, 100, np.uint32, "max", None),
@@ -580,10 +592,21 @@ def compare_radix_kernels(dev, rng) -> dict:
                                  [x for x in want if x is not None])
             err["histogram"] = max(err["histogram"], e_hist)
             err["radix_dest"] = max(err["radix_dest"], e_dest, e_move)
+        offsets = histogram.digit_histograms(keys)
+        e_one = max_abs_err([offsets], [histogram.digit_histograms_plain(keys)])
+        cur_k, cur_v = keys, vals
+        for shift in range(0, 8 * keys.element_size(), 8):
+            got = radix_tiled.onesweep_pass(cur_k, cur_v, shift, offsets[shift // 8])
+            want = radix_tiled.onesweep_pass_plain(cur_k, cur_v, shift, offsets[shift // 8])
+            e_one = max(e_one, max_abs_err([x for x in got if x is not None],
+                                           [x for x in want if x is not None]))
+            cur_k, cur_v = got
+        err["onesweep"] = max(err["onesweep"], e_one)
         phase("compare", f"histogram + radix_dest (both modes) n={n} tile={tile} "
                          f"{np.dtype(dtype).name} {kind} payload "
                          f"{None if vdt is None else np.dtype(vdt).name}, every pass: "
-                         f"max_abs_err {err['histogram']} / {err['radix_dest']}")
+                         f"max_abs_err {err['histogram']} / {err['radix_dest']}; digit_histograms "
+                         f"+ onesweep_pass, every pass: max_abs_err {e_one}")
     for n, kdt, vdt, kind in [(N_FUSED, np.uint32, np.uint32, "ties"),
                               (N_FUSED, np.uint64, np.uint64, "uniform"),
                               (N_FUSED - 5, np.uint64, np.uint64, "max"),
@@ -615,10 +638,11 @@ def scan_int64(hist: torch.Tensor) -> torch.Tensor:
 
 def profile_radix_sort(keys, values, backend, smi: str) -> None:
     """One 1e8 radix_tiled sort under ``torch.profiler``: the device kernels
-    by name and count, and the host's aten calls. The pass moves keys and
-    values in its own kernel: no torch indexing or scatter kernel may run,
-    and no ``aten::_to_copy`` (a dtype conversion, such as the former int32 ->
-    int64 widening of the destinations)."""
+    by name and count, and the host's aten calls. One digit histogram, then
+    each pass moves keys and values in its own onesweep kernel: no per-pass
+    histogram or rank-and-scatter kernel, no torch indexing or scatter kernel
+    may run, and no ``aten::_to_copy`` (a dtype conversion, such as the
+    former int32 -> int64 widening of the destinations)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -642,28 +666,20 @@ def profile_radix_sort(keys, values, backend, smi: str) -> None:
                                                              key=lambda kv: -kv[1][1]))
         + f"; aten::_to_copy {host.get('aten::_to_copy', 0)}, aten::index_put_ "
         f"{host.get('aten::index_put_', 0)} [{smi}]")
-    if count("histogram_kernel") != 4 or count("radix_pass_kernel") != 4 or torch_moves or \
+    if count("digit_histograms_kernel") != 1 or count("onesweep_kernel") != 4 or torch_moves or \
+            count("::histogram_kernel") or count("radix_pass_kernel") or \
             host.get("aten::_to_copy", 0) or host.get("aten::index_put_", 0):
-        raise AssertionError(f"the radix_tiled profile is not 4 histograms and 4 rank-and-scatter "
-                             f"launches alone: {kernels_seen}, aten {host}")
+        raise AssertionError(f"the radix_tiled profile is not 1 digit histogram and 4 onesweep "
+                             f"passes alone: {kernels_seen}, aten {host}")
 
 
 def radix_chunk_sweep(dev, keys, values, smi: str) -> dict:
-    """The radix_tiled chunk swept over RADIX_CHUNKS at 1e8 stable u32 kv:
-    the whole ``sort_pairs`` in turns, its results bitwise equal across
-    chunks, and at each chunk the histogram, the scan and the rank-and-
-    scatter kernel summed over the sort's 4 passes. Returns {"sort_pairs":
-    {chunk: [ms...]}, "parts": {chunk: {part: ms}}}."""
-    first = None
+    """The per-pass API's chunk swept over RADIX_CHUNKS at 1e8 stable u32
+    kv: at each chunk the histogram, the scan and the rank-and-scatter
+    kernel summed over the 4 passes (the card's sort, onesweep, does not
+    read the chunk). Returns {chunk: {part: ms}}."""
     parts = {}
     for chunk in RADIX_CHUNKS:
-        out = vt.sort_pairs(keys, values, backend="radix_tiled", config=vt.SortConfig(chunk=chunk))
-        if first is None:
-            first = out
-        elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                     for a, b in zip(first, out)):
-            raise AssertionError(f"the radix_tiled result depends on the chunk ({chunk})")
-        del out
         ms = {"histogram": 0.0, "scan": 0.0, "scatter": 0.0}
         cur_k, cur_v = keys, values
         for shift in range(0, 32, 8):
@@ -674,31 +690,101 @@ def radix_chunk_sweep(dev, keys, values, smi: str) -> dict:
             ms["scatter"] += time_ms(
                 lambda: radix_tiled.tile_scatter(cur_k, cur_v, shift, chunk, base))
             cur_k, cur_v = radix_tiled.tile_scatter(cur_k, cur_v, shift, chunk, base)
+        check_kv(keys, cur_k, cur_v)
         parts[chunk] = ms
-    del first, cur_k, cur_v
-    e2e = in_turns(lambda c: lambda k: vt.sort_pairs(k, values, backend="radix_tiled",
-                                                     config=vt.SortConfig(chunk=c)),
-                   keys, {c: c for c in RADIX_CHUNKS})
-    phase("time", f"radix_tiled chunk sweep n={N_MAIN} stable u32 kv, 4 passes summed: " + "; ".join(
+    phase("time", f"per-pass API chunk sweep n={N_MAIN} stable u32 kv, 4 passes summed: " + "; ".join(
         f"chunk {c}: histogram {m['histogram']:.4f}, scan {m['scan']:.4f}, rank-and-scatter "
-        f"{m['scatter']:.4f} ms, whole sort_pairs {' / '.join(f'{x:.3f}' for x in e2e[c])} ms"
-        for c, m in parts.items()) + f"; results bitwise equal; the default takes "
-        f"{vt.SortConfig().chunk} [{smi}]")
-    return {"sort_pairs": e2e, "parts": parts}
+        f"{m['scatter']:.4f} ms" for c, m in parts.items()) + f"; each the exact stable sort [{smi}]")
+    return parts
+
+
+def onesweep_parts(dev, keys: torch.Tensor, values, what: str, smi: str) -> dict:
+    """The card's radix sort (onesweep) of ``keys`` with ``values`` (an
+    arange, or None) by kernel: ``digit_histograms`` and each pass's
+    ``onesweep_pass``, bitwise against their plain versions on the pass's
+    own input and timed beside their bounds (the histogram reads each key
+    once; a pass reads and writes each key and payload once) and their plain
+    versions, with the pass's library answer (a stable ``torch.sort`` of its
+    8-bit digit, int16, built outside the timed window, and the gathers)
+    bitwise equal to it and timed, the histogram's (one ``bincount`` of
+    every pass's digit, its index built outside the window), the kernel's
+    shape and the blocks resident on each SM. The passes by hand give the
+    exact stable sort."""
+    n, kb = keys.numel(), keys.element_size()
+    vb = 0 if values is None else values.element_size()
+    shape = radix_tiled.onesweep_shape(dev.index, kb, vb)
+    st = {"shape": shape, "histogram_bound": bound_ms(kb * n),
+          "pass_bound": bound_ms(2 * (kb + vb) * n), "pass": [], "pass_plain": [],
+          "pass_library": []}
+    offsets = histogram.digit_histograms(keys)
+    err = max_abs_err([offsets], [histogram.digit_histograms_plain(keys)])
+    st["histogram"] = time_ms(lambda: histogram.digit_histograms(keys))
+    st["histogram_plain"] = time_ms(lambda: histogram.digit_histograms_plain(keys), reps=3)
+    composite = torch.cat([p * NUM_BINS + extract_digit(keys, 8 * p) for p in range(kb)])
+    st["histogram_library"] = time_ms(lambda: torch.bincount(composite, minlength=kb * NUM_BINS))
+    del composite
+    state = radix_tiled.lookback_state(keys, values)
+    cur_k, cur_v = keys, values
+    for p in range(kb):
+        shift, off = 8 * p, offsets[p]
+        nxt = radix_tiled.onesweep_pass(cur_k, cur_v, shift, off, state)
+        err = max(err, max_abs_err(
+            [x for x in nxt if x is not None],
+            [x for x in radix_tiled.onesweep_pass_plain(cur_k, cur_v, shift, off) if x is not None]))
+        digit = extract_digit(cur_k, shift).to(torch.int16)
+
+        def library_pass():
+            perm = torch.sort(digit, stable=True).indices
+            return take(cur_k, perm), None if cur_v is None else take(cur_v, perm)
+
+        if not all(a is b or same_bits(a, b) for a, b in zip(library_pass(), nxt)):
+            raise AssertionError(f"{what}: the stable torch.sort of the digit at shift {shift} and "
+                                 "its gathers disagree with the onesweep pass")
+        st["pass"].append(time_ms(lambda: radix_tiled.onesweep_pass(cur_k, cur_v, shift, off,
+                                                                      state)))
+        st["pass_plain"].append(time_ms(
+            lambda: radix_tiled.onesweep_pass_plain(cur_k, cur_v, shift, off), reps=3))
+        st["pass_library"].append(time_ms(library_pass, reps=3))
+        top = int(torch.diff(offsets[p].to(torch.int64),
+                             append=torch.tensor([n], device=dev)).max()) / n
+        phase("time", f"n={n} {what} onesweep pass at shift {shift}: {st['pass'][-1]:.4f} ms "
+                      f"(bound {st['pass_bound']:.4f}, {st['pass_bound'] / st['pass'][-1]:.1%}; "
+                      f"plain {st['pass_plain'][-1]:.3f}; library: stable torch.sort of the int16 "
+                      f"digit + gathers {st['pass_library'][-1]:.4f} ms, bitwise equal); the "
+                      f"most common digit holds {top:.1%} of the keys [{smi}]")
+        del digit
+        cur_k, cur_v = nxt
+    if values is not None:
+        check_kv(keys, cur_k, cur_v)
+    st["err"] = err
+    if err:
+        raise AssertionError(f"{what}: the onesweep kernels disagree with their plain versions: "
+                             f"max_abs_err {err}")
+    phase("time", f"n={n} {what} onesweep sort by kernel: digit_histograms {st['histogram']:.4f} ms "
+                  f"(bound {st['histogram_bound']:.4f}, {st['histogram_bound'] / st['histogram']:.1%}; "
+                  f"plain {st['histogram_plain']:.3f}; one bincount {st['histogram_library']:.4f}), "
+                  f"{kb} passes {sum(st['pass']):.4f} ms (bound {kb * st['pass_bound']:.4f}, "
+                  f"{kb * st['pass_bound'] / sum(st['pass']):.1%}; plain {sum(st['pass_plain']):.3f}; "
+                  f"library {sum(st['pass_library']):.4f}); shape {shape}, state "
+                  f"{state.numel() * 4 / 1e6:.2f} MB; max_abs_err {err}; the passes by hand give "
+                  f"the exact stable sort [{smi}]")
+    return st
 
 
 def radix_main_path(dev, rng, smi: str) -> tuple:
     """The radix_tiled path: 1e6 pairs against numpy, then 1e8 pairs through
     the public entry point (the default route where it leads there) with
-    launch counts, a profiler trace and peak memory, then each of the 1e8
-    sort's passes by hand: the histogram kernel and both modes of the
-    rank-and-scatter kernel bitwise against their plain versions on the
-    pass's own keys and timed beside them, with the scan, ``torch.bincount``
-    over the precomputed composite index as the histogram's library
-    yardstick, a stable ``torch.sort`` of the pass's 8-bit digit (int16,
-    built outside the timed window) and the gathers of keys and values as
-    the rank-and-scatter pass's (bitwise its output), and the former int64
-    scan; then the chunk sweep. Returns (launches, stats)."""
+    launch counts, a profiler trace, peak memory and its time, then the
+    onesweep sort by kernel (``onesweep_parts``), then each pass of the
+    per-pass API (the JAX package's twins) by hand at the default chunk: the
+    histogram kernel and both modes of the rank-and-scatter kernel bitwise
+    against their plain versions on the pass's own keys and timed beside
+    them, with the scan, ``torch.bincount`` over the precomputed composite
+    index as the histogram's library yardstick, a stable ``torch.sort`` of
+    the pass's 8-bit digit (int16, built outside the timed window) and the
+    gathers of keys and values as the rank-and-scatter pass's (bitwise its
+    output), and the former int64 scan; then the per-pass API's chunk
+    sweep. Returns (launches, stats)."""
     small = rng.integers(0, 1 << 32, size=N_SMALL, dtype=np.uint32)
     sk, sv = vt.sort_pairs(torch.from_numpy(small).to(dev),
                            torch.arange(N_SMALL, dtype=torch.int32, device=dev).view(torch.uint32),
@@ -716,19 +802,27 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     c0 = profiling.counters()
     out_k, out_v = vt.sort_pairs(keys, values, backend=backend)
     torch.cuda.synchronize()
-    launches = launches_since(c0, "histogram", "radix_scatter", "radix_dest")
+    launches = launches_since(c0, "digit_histograms", "onesweep", "histogram", "radix_scatter",
+                              "radix_dest")
     peak = torch.cuda.max_memory_allocated(dev)
     check_kv(keys, out_k, out_v)
+    want = {"digit_histograms": 1, "onesweep": 4, "histogram": 0, "radix_scatter": 0,
+            "radix_dest": 0}
     phase("slice", f"sort_pairs n={N_MAIN} backend={backend} (the default route is "
                    f"{route_for('kv', N_MAIN)}): exact stable sort on the device; launches "
-                   f"{launches}, expected 4, 4 and 0; peak device memory {peak / 1e9:.3f} GB "
+                   f"{launches}, expected {want}; peak device memory {peak / 1e9:.3f} GB "
                    f"({before / 1e9:.3f} GB of it allocated before the call)")
-    if launches != {"histogram": 4, "radix_scatter": 4, "radix_dest": 0}:
+    if launches != want:
         raise AssertionError(f"the radix_tiled path did not run through the kernels: {launches}")
     oracle_s = oracle_main_path(keys, out_k, out_v, backend or "the default route", smi)
     del out_k, out_v
     profile_radix_sort(keys, values, backend, smi)
+    sort_ms = [time_ms(lambda: vt.sort_pairs(keys, values, backend=backend)) for _ in range(3)]
+    phase("time", f"sort_pairs n={N_MAIN} stable u32 kv on radix_tiled (onesweep), 3 runs of "
+                  f"{REPS}: {' / '.join(f'{x:.4f}' for x in sort_ms)} ms [{smi}]")
+    one = onesweep_parts(dev, keys, values, "stable u32 kv", smi)
 
+    # the per-pass API (the JAX package's twins, off the sort route) on the same keys
     tile = vt.SortConfig().chunk
     nt = cdiv(N_MAIN, tile)
     st = {k: 0.0 for k in ("histogram", "histogram_plain", "histogram_library", "scan",
@@ -787,13 +881,13 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
         del composite, dest, base, hist, digit
         cur_k, cur_v = nxt
     check_kv(keys, cur_k, cur_v)
-    phase("compare", f"n={N_MAIN} chunk={tile}, the 4 passes of the radix_tiled sort on their own "
-                     f"keys: histogram max_abs_err {err['histogram']}, rank-and-scatter (both "
+    phase("compare", f"n={N_MAIN} chunk={tile}, the per-pass API's 4 passes on their own keys: "
+                     f"histogram max_abs_err {err['histogram']}, rank-and-scatter (both "
                      f"modes) max_abs_err {err['radix_dest']}; the passes by hand give the exact "
                      "stable sort")
     if any(err.values()):
         raise AssertionError(f"radix kernels disagree with their plain versions at 1e8: {err}")
-    phase("time", f"n={N_MAIN} radix_tiled chunk {tile}, 4 passes summed: histogram "
+    phase("time", f"n={N_MAIN} per-pass API chunk {tile}, 4 passes summed: histogram "
                   f"{st['histogram']:.3f} ms (plain {st['histogram_plain']:.3f}, bincount "
                   f"{st['histogram_library']:.3f}); scan {st['scan']:.3f} ms (int64 form "
                   f"{st['scan_int64']:.3f}); rank-and-scatter {st['radix_scatter']:.3f} ms (plain "
@@ -806,6 +900,8 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     st["err"] = err
     st["peak_gb"] = peak / 1e9
     st["oracle_s"] = oracle_s
+    st["sort_ms"] = sort_ms
+    st["onesweep"] = one
     return launches, st
 
 
@@ -2023,6 +2119,25 @@ def check_past_2_31(dev) -> None:
         raise AssertionError("the merge kernels disagree with their plain versions past 2^31")
 
 
+def check_onesweep_near_2_31(dev) -> None:
+    """The onesweep sort at n = 2^31 - 1, the top of radix_tiled's envelope,
+    where the look-back words' inclusive prefixes reach 2^31 - 1: the u32
+    keys n - 1 - i, all distinct, sorted to arange(n), bitwise, with one
+    digit histogram and 4 passes."""
+    n = (1 << 31) - 1
+    keys = torch.arange(n - 1, -1, -1, dtype=torch.int32, device=dev).view(torch.uint32)
+    c0 = profiling.counters()
+    out, _ = radix_tiled.sort_radix_tiled(keys)
+    del keys
+    torch.cuda.synchronize()
+    launches = launches_since(c0, "digit_histograms", "onesweep")
+    ok = same_bits(out, torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32))
+    phase("compare", f"n={n} (2^31 - 1) u32 keys n - 1 - i on radix_tiled (onesweep): sorted to "
+                     f"arange(n) bitwise: {ok}; launches {launches}")
+    if not ok or launches != {"digit_histograms": 1, "onesweep": 4}:
+        raise AssertionError("the onesweep sort is wrong at n = 2^31 - 1")
+
+
 # --- 12. the dispatcher's other paths at the bench size, on their default routes
 
 def counted(call):
@@ -2032,20 +2147,20 @@ def counted(call):
     c0 = profiling.counters()
     out = call()
     torch.cuda.synchronize()
-    got = launches_since(c0, "tilesort", "mergepath", "histogram", "radix_scatter", "radix_dest")
+    got = launches_since(c0, "tilesort", "mergepath", "histogram", "radix_scatter", "radix_dest",
+                         "digit_histograms", "onesweep")
     return out, {k: v for k, v in got.items() if v}
 
 
 def expected_launches(path: str, n: int, wide: bool, dev) -> dict:
     """The kernel launches of one sort of n keys (u64 if ``wide``) with one
-    4-byte payload on ``path``: a histogram and a rank-and-scatter launch a
-    pass on radix_tiled; one tile sort and a launch a level on merge; none
+    4-byte payload on ``path``: one digit histogram and an onesweep pass a
+    digit on radix_tiled; one tile sort and a launch a level on merge; none
     on tiled (``torch.sort``)."""
     if path == "tiled":
         return {}
     if path == "radix_tiled":
-        passes = 8 if wide else 4
-        return {"histogram": passes, "radix_scatter": passes}
+        return {"digit_histograms": 1, "onesweep": 8 if wide else 4}
     if path == "merge":
         tiles, levels = merge_launches(n, 2 if wide else 1, dev)
         return {"tilesort": tiles, "mergepath": levels}
@@ -2108,14 +2223,15 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
 
 
 def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
-    """Each of the 8 passes of a radix_tiled sort of u64 ``keys`` with an
-    arange u32 payload, on the sort's own intermediate keys: the histogram
-    kernel and the rank-and-scatter kernel bitwise against their plain
-    versions, and timed beside their bounds (the histogram reads the keys,
-    8 B a key, and writes its table; the pass reads and writes keys and
-    payload, 24 B an element, and reads the table) and the share of the
-    keys in the pass's most common digit. Returns the per-pass ms, the
-    bounds and the errors."""
+    """Each of the 8 passes of the per-pass API's sort of u64 ``keys`` with
+    an arange u32 payload, on the sort's own intermediate keys: the
+    histogram kernel and the rank-and-scatter kernel bitwise against their
+    plain versions, and timed beside their bounds (the histogram reads the
+    keys, 8 B a key, and writes its table; the pass reads and writes keys
+    and payload, 24 B an element, and reads the table) and the share of the
+    keys in the pass's most common digit; then the onesweep sort of the
+    same keys by kernel (``onesweep_parts``). Returns the per-pass ms, the
+    bounds, the errors and the onesweep's parts."""
     tile = vt.SortConfig().chunk
     n = keys.numel()
     table = 4 * NUM_BINS * cdiv(n, tile)
@@ -2148,15 +2264,19 @@ def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
     if any(st["err"].values()):
         raise AssertionError(f"radix kernels disagree with their plain versions on the {what} "
                              f"passes: {st['err']}")
-    phase("time", f"n={n} {what} radix_tiled, 8 passes summed: histogram "
+    phase("time", f"n={n} {what} per-pass API, 8 passes summed: histogram "
                   f"{sum(st['histogram']):.3f} ms (bound {8 * st['histogram_bound']:.3f}), "
                   f"rank-and-scatter {sum(st['radix_dest']):.3f} ms (bound "
                   f"{8 * st['radix_dest_bound']:.3f}); the passes by hand give the exact stable "
                   f"sort [{smi}]")
+    del cur_k, cur_v
+    st["onesweep"] = onesweep_parts(
+        dev, keys, torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32), what, smi)
     return st
 
 
 BENCH_NAMES = {"histogram": "tile_histograms", "radix_scatter": "tile_scatter",
+               "digit_histograms": "digit_histograms", "onesweep": "onesweep_pass",
                "tilesort": "tilesort", "mergepath": "mergepath_level"}  # wrapper of each kernel
 
 
@@ -2167,8 +2287,8 @@ def bench_twin(dev, radix_ms: list, smi: str) -> dict:
     JSON line on stdout, holding the contract's four keys and a value above
     0, and its 1e8 sort must have launched the kernels of the default route
     (its stderr logs the launches of that call). Its value is printed
-    beside N over phase 5's whole radix_tiled sort at the default chunk
-    (``radix_ms``, both turns). Returns {"line": the JSON line, "launches":
+    beside N over phase 5's whole radix_tiled sort (``radix_ms``, three
+    runs). Returns {"line": the JSON line, "launches":
     the sort's launches by wrapper}."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the twin allocates in its own process
@@ -2309,6 +2429,7 @@ def main() -> None:
     launches["fused"], fst = fused_main_path(dev, rng, smi)
     for k in ("histogram", "radix_dest"):
         err[k] = max(err[k], rst["err"][k])
+    err["onesweep"] = max(err["onesweep"], rst["onesweep"]["err"])
     err["fused"] = max(err["fused"], fst["err"])
 
     # --- 7. times: merge kernels beside their plain versions, the routes in turns
@@ -2319,6 +2440,7 @@ def main() -> None:
     merge_plane_sweep(dev, smi)
     check_coranks(dev)
     check_past_2_31(dev)
+    check_onesweep_near_2_31(dev)
 
     # --- 8. and 9. the bitonic and samplesort paths
     err["bitonic"] = compare_bitonic(dev, rng)
@@ -2351,6 +2473,8 @@ def main() -> None:
            "uniform": radix_passes_u64(dev, random_u64(dev, N_MAIN, SEED + 93), "u64 uniform",
                                        smi)}
     err = merged_err(err, u64["zipf"]["err"], u64["uniform"]["err"])
+    err["onesweep"] = max(err["onesweep"], u64["zipf"]["onesweep"]["err"],
+                          u64["uniform"]["onesweep"]["err"])
 
     # --- 13. the reference's fixtures from the host runtime, and what the oracle cost
     fixtures_s = oracle_fixtures(dev, smi)
@@ -2359,8 +2483,9 @@ def main() -> None:
                     f"{routes_oracle_s:.3f}, fixtures {fixtures_s:.3f} [host: {host_cpu()}]")
 
     # --- 14. the port's benchmark, as a user runs it
-    twin = bench_twin(dev, rst["sweep"]["sort_pairs"][vt.SortConfig().chunk], smi)
+    twin = bench_twin(dev, rst["sort_ms"], smi)
 
+    one = rst["onesweep"]
     nt = cdiv(N_MAIN, vt.SortConfig().chunk)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
     # keys and values read and written, the base table read; 4 passes
@@ -2389,6 +2514,7 @@ def main() -> None:
          "shard_ms_nck2_nck3": [n3[2]["mergepath"], n3[3]["mergepath"]]},
         {"name": "histogram", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/histogram.cu",
          "replaces": "vkradixsort_tpu/ops/histogram.py:54", "launches": launches["histogram"],
+         "api": "the JAX package's per-pass API, off the sort route",
          "max_abs_err": err["histogram"], "ms": rst["histogram"],
          "plain_ms": rst["histogram_plain"], "bound_ms": bound_ms(hist_bytes),
          "bound_by": "bytes", "library_ms": rst["histogram_library"],
@@ -2399,6 +2525,7 @@ def main() -> None:
         {"name": "radix_dest", "route": "cuda",
          "source": "vkradixsort_tpu_torch/csrc/radix_dest.cu",
          "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86",
+         "api": "the JAX package's per-pass API, off the sort route",
          "launches": launches["radix_scatter"], "max_abs_err": err["radix_dest"],
          "ms": rst["radix_scatter"], "plain_ms": rst["radix_scatter_plain"],
          "bound_ms": bound_ms(move_bytes), "bound_by": "bytes",
@@ -2408,6 +2535,29 @@ def main() -> None:
          "u64_zipf_1e8_ms": sum(u64["zipf"]["radix_dest"]),
          "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["radix_dest_bound"],
          "u64_uniform_1e8_ms": sum(u64["uniform"]["radix_dest"])},
+        {"name": "digit_histograms", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/onesweep.cu",
+         "replaces": "vkradixsort_tpu/ops/histogram.py:54 (on the sort route, once a sort)",
+         "launches": launches["digit_histograms"], "max_abs_err": err["onesweep"],
+         "ms": one["histogram"], "plain_ms": one["histogram_plain"],
+         "bound_ms": one["histogram_bound"], "bound_by": "bytes",
+         "library_ms": one["histogram_library"],
+         "bench_launches": twin["launches"].get("digit_histograms", 0),
+         "u64_zipf_1e8_ms": u64["zipf"]["onesweep"]["histogram"],
+         "u64_zipf_1e8_bound_ms": u64["zipf"]["onesweep"]["histogram_bound"],
+         "u64_uniform_1e8_ms": u64["uniform"]["onesweep"]["histogram"]},
+        {"name": "onesweep_pass", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/onesweep.cu",
+         "replaces": "vkradixsort_tpu/ops/radix_tiled.py:86 (on the sort route)",
+         "launches": launches["onesweep"], "max_abs_err": err["onesweep"],
+         "ms": sum(one["pass"]), "plain_ms": sum(one["pass_plain"]),
+         "bound_ms": 4 * one["pass_bound"], "bound_by": "bytes",
+         "library_ms": sum(one["pass_library"]), "shape": one["shape"],
+         "bench_launches": twin["launches"].get("onesweep_pass", 0),
+         "u64_zipf_1e8_ms": sum(u64["zipf"]["onesweep"]["pass"]),
+         "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["onesweep"]["pass_bound"],
+         "u64_zipf_shape": u64["zipf"]["onesweep"]["shape"],
+         "u64_uniform_1e8_ms": sum(u64["uniform"]["onesweep"]["pass"])},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

@@ -339,7 +339,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
     keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint64 if wide else np.uint32)
     vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32)]
     vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2}[base]]
-    before = (launches("tilesort"), launches("tile_scatter"))
+    before = (launches("tilesort"), launches("onesweep_pass"))
     tk = torch.from_numpy(keys).to(dev)
     perm = np.argsort(keys, kind="stable")
     if base == "argsort":
@@ -351,7 +351,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
                                stable=base != "kv_unstable")
     else:
         ok, ov = vt.sort(tk), []
-    ran = (launches("tilesort") > before[0], launches("tile_scatter") > before[1])
+    ran = (launches("tilesort") > before[0], launches("onesweep_pass") > before[1])
     assert ran == (engine == "merge", engine == "radix_tiled")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     for o, v in zip(ov, vals):
@@ -551,24 +551,158 @@ def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain version")
 
     monkeypatch.setattr(histogram, "tile_histograms_plain", refuse)
+    monkeypatch.setattr(histogram, "digit_histograms_plain", refuse)
     monkeypatch.setattr(radix_tiled, "tile_destinations_plain", refuse)
     monkeypatch.setattr(radix_tiled, "pass_destinations_plain", refuse)
     monkeypatch.setattr(radix_tiled, "tile_scatter_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "onesweep_pass_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "lookback_bases_plain", refuse)
     monkeypatch.setattr(reference, "scatter", refuse)  # torch's scatter, the replaced move
     monkeypatch.setattr(fused, "sort_fused_plain", refuse)
     rng = np.random.default_rng(8)
     for backend, n in [("radix_tiled", (1 << 20) + 3), ("fused", 30_000)]:
         keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
         vals = np.arange(n, dtype=np.uint32)
-        before = (launches("tile_scatter"), launches("tile_destinations"))
+        names = ("digit_histograms", "onesweep_pass", "tile_histograms", "tile_scatter",
+                 "tile_destinations")
+        before = [launches(w) for w in names]
         ok, ov = vt.sort_pairs(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
                                backend=backend)
-        if backend == "radix_tiled":  # 4 passes, each one histogram and one scatter
-            assert (launches("tile_scatter"),
-                    launches("tile_destinations")) == (before[0] + 4, before[1])
+        if backend == "radix_tiled":  # one histogram of every digit, then 4 onesweep passes
+            assert [launches(w) - b for w, b in zip(names, before)] == [1, 4, 0, 0, 0]
         perm = np.argsort(keys, kind="stable")
         np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
         np.testing.assert_array_equal(ov.cpu().numpy(), perm.astype(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the onesweep sort, radix_tiled's route on the card: one digit_histograms a
+# sort, one onesweep_pass a pass, each bitwise its plain version, the sort
+# bitwise a stable torch.sort and its gathers
+
+ONESWEEP_SIZES = ["1", "tile-1", "tile", "tile+1", "2^20+3", "1e7"]
+
+
+def _onesweep_n(size: str, tile: int) -> int:
+    return {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "2^20+3": (1 << 20) + 3, "1e7": 10_000_000}[size]
+
+
+def _onesweep_keys(rng, n, dtype, kind):
+    """"uniform"; "equal" (every key alike: one digit holds each pass, the
+    look-back chains are the longest); "zipf" (Zipf(1.3)); "descending";
+    "top" (keys that differ only in the top byte)."""
+    if kind in ("uniform", "zipf", "descending"):
+        from vkradixsort_tpu_torch.utils.fixtures import make_keys
+
+        return make_keys(rng, n, dtype, kind)
+    if kind == "equal":
+        return np.full(n, 0x5A, dtype=dtype)
+    bits = 8 * np.dtype(dtype).itemsize
+    return rng.integers(0, 256, size=n).astype(dtype) << dtype(bits - 8)
+
+
+def _check_onesweep(dev, keys_np, payload, rng):
+    """Each pass of the onesweep sort of ``keys_np`` with a random payload
+    of dtype ``payload`` (or none) bitwise its plain version on the same
+    input, the digit offsets bitwise theirs, the passes' result bitwise the
+    radix_tiled route's and a stable torch.sort's with its gather, the
+    inputs untouched and the launches one histogram and one pass a digit."""
+    keys = torch.from_numpy(keys_np).to(dev)
+    vals = None if payload is None else _payload(rng, keys_np.size, payload).to(dev)
+    keys_in, vals_in = keys.clone(), None if vals is None else vals.clone()
+    passes = keys.element_size()
+    c0 = profiling.counters()
+    offsets = histogram.digit_histograms(keys)
+    _equal([offsets], [histogram.digit_histograms_plain(keys)])
+    state = radix_tiled.lookback_state(keys, vals)
+    cur_k, cur_v = keys, vals
+    for p in range(passes):
+        ok, ov = radix_tiled.onesweep_pass(cur_k, cur_v, 8 * p, offsets[p], state)
+        pk, pv = radix_tiled.onesweep_pass_plain(cur_k, cur_v, 8 * p, offsets[p])
+        _equal([common.bits_view(ok)], [common.bits_view(pk)])
+        if vals is None:
+            assert ov is None and pv is None
+        else:
+            _equal([common.bits_view(ov)], [common.bits_view(pv)])
+        cur_k, cur_v = ok, ov
+    moved = profiling.since(c0)
+    assert (moved.get("launch.digit_histograms"), moved.get("launch.onesweep_pass")) == (1, passes)
+    if vals is None:
+        got, want = [vt.sort(keys, backend="radix_tiled")], [vt.sort(keys, backend="tiled")]
+    else:
+        got = list(vt.sort_pairs(keys, vals, backend="radix_tiled"))
+        want = list(vt.sort_pairs(keys, vals, backend="tiled"))
+    torch.cuda.synchronize()
+    _equal([common.bits_view(x) for x in got], [common.bits_view(x) for x in want])
+    _equal([common.bits_view(x) for x in (cur_k, cur_v) if x is not None],
+           [common.bits_view(x) for x in want])
+    _equal([common.bits_view(keys)], [common.bits_view(keys_in)])
+    if vals is not None:
+        _equal([common.bits_view(vals)], [common.bits_view(vals_in)])
+
+
+@pytest.mark.parametrize("size", ONESWEEP_SIZES)
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("payload", RADIX_PAYLOADS,
+                         ids=lambda d: "keys" if d is None else np.dtype(d).name)
+def test_onesweep_sort_matches_plain(dev, size, dtype, payload):
+    width = 0 if payload is None else np.dtype(payload).itemsize
+    tile = radix_tiled.onesweep_shape(dev.index, np.dtype(dtype).itemsize, width)["tile"]
+    n = _onesweep_n(size, tile)
+    rng = np.random.default_rng(n + width)
+    _check_onesweep(dev, _onesweep_keys(rng, n, dtype, "uniform"), payload, rng)
+
+
+@pytest.mark.parametrize("kind,dtype", [("equal", np.uint32), ("equal", np.uint64),
+                                        ("zipf", np.uint64), ("descending", np.uint32),
+                                        ("descending", np.uint64), ("top", np.uint32),
+                                        ("top", np.uint64)])
+@pytest.mark.parametrize("size", ["tile+1", "2^20+3"])
+@pytest.mark.parametrize("payload", [None, np.uint32, np.uint64],
+                         ids=lambda d: "keys" if d is None else np.dtype(d).name)
+def test_onesweep_sort_on_skewed_keys(dev, kind, dtype, size, payload):
+    width = 0 if payload is None else np.dtype(payload).itemsize
+    tile = radix_tiled.onesweep_shape(dev.index, np.dtype(dtype).itemsize, width)["tile"]
+    n = _onesweep_n(size, tile)
+    rng = np.random.default_rng(n + width + 7)
+    _check_onesweep(dev, _onesweep_keys(rng, n, dtype, kind), payload, rng)
+
+
+@pytest.mark.parametrize("dtype,passes", [(np.uint32, 4), (np.uint64, 8)])
+def test_onesweep_launches_per_call(dev, dtype, passes):
+    # the mechanism engages on every radix_tiled call: one histogram of
+    # every digit, one pass a digit, none of the per-pass API's kernels
+    rng = np.random.default_rng(passes)
+    keys = torch.from_numpy(_onesweep_keys(rng, 3_000_001, dtype, "uniform")).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    names = ("digit_histograms", "onesweep_pass", "tile_histograms", "tile_scatter",
+             "tile_destinations")
+    for call in (lambda: vt.sort_pairs(keys, vals, backend="radix_tiled"),
+                 lambda: vt.sort(keys, backend="radix_tiled"),
+                 lambda: vt.argsort(keys, backend="radix_tiled")):
+        before = [launches(w) for w in names]
+        call()
+        assert [launches(w) - b for w, b in zip(names, before)] == [1, passes, 0, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_onesweep_back_to_back_sorts(dev, dtype):
+    # 20 sorts in a row on one stream, checked only after the last: a
+    # look-back state or tile counter left over from an earlier pass or call
+    # would show as a wrong slot
+    rng = np.random.default_rng(20)
+    kinds = ["uniform", "equal", "top", "descending"]
+    cases = []
+    for i in range(20):
+        n = int(rng.integers(1, 400_000)) if i % 3 else 1_000_003
+        keys = torch.from_numpy(_onesweep_keys(rng, n, dtype, kinds[i % 4])).to(dev)
+        vals = torch.from_numpy(rng.integers(0, 2**31, size=n).astype(np.int32)).to(dev)
+        cases.append((keys, vals, vt.sort_pairs(keys, vals, backend="radix_tiled")))
+    torch.cuda.synchronize()
+    for keys, vals, got in cases:
+        want = vt.sort_pairs(keys, vals, backend="tiled")
+        _equal([common.bits_view(x) for x in got], [common.bits_view(x) for x in want])
 
 
 @pytest.mark.parametrize("key_dtype,payload", [

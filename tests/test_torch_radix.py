@@ -292,13 +292,20 @@ def test_radix_pass_tiled_matches_jax(jax_passes, i):
             launches("tile_histograms")) == before  # CPU: the plain versions
 
 
-def test_sort_radix_tiled_matches_jax():
-    # the whole sort, u32 keys with ties and a 2-byte payload: JAX's four
-    # passes at this size and tile are the slice fixture's compiles
+@pytest.fixture(scope="module")
+def jax_sort_u32():
+    """JAX's whole sort_radix_tiled of u32 keys with ties and a 2-byte
+    payload: its four passes at this size and tile are the slice fixture's
+    compiles."""
     keys = _keys(60, N_SLICE, np.uint32, "ties")
     vals = _payload(61, N_SLICE, np.int16)
     jk, jv = jradix_tiled.sort_radix_tiled(jnp.asarray(keys), jnp.asarray(vals), TILE,
                                            interpret=True)
+    return keys, vals, np.asarray(jk), np.asarray(jv)
+
+
+def test_sort_radix_tiled_matches_jax(jax_sort_u32):
+    keys, vals, jk, jv = jax_sort_u32
     ok, ov = radix_tiled.sort_radix_tiled(_t(keys), _t(vals), TILE)
     _eq(ok, jk)
     _eq(ov, jv)
@@ -319,6 +326,90 @@ def test_tile_scatter_moves_to_the_destinations(tile):
     ok, none = radix_tiled.tile_scatter(_t(keys), None, 56, tile, base)
     assert none is None
     _eq(ok, want_k)
+
+
+# ---------------------------------------------------------------------------
+# the onesweep sort, the card's radix_tiled route, through its plain
+# versions: one digit_histograms a sort, then one onesweep_pass a pass whose
+# tiles' bases are the look-back sums
+
+ONESWEEP_CASES = [  # (key dtype, n, kind)
+    (np.uint32, 5000, "ties"), (np.uint32, 3001, "uniform"), (np.uint32, 1, "uniform"),
+    (np.uint64, 4097, "max"), (np.uint64, 2500, "uniform"), (np.uint64, 777, "constant"),
+]
+
+
+@pytest.mark.parametrize("dtype,n,kind", ONESWEEP_CASES,
+                         ids=[f"{c[0].__name__}-{c[1]}-{c[2]}" for c in ONESWEEP_CASES])
+def test_digit_histograms_are_row_0_of_each_pass_table(dtype, n, kind):
+    keys = _t(_keys(n + 3, n, dtype, kind))
+    before = launches("digit_histograms")
+    offsets = histogram.digit_histograms(keys)
+    assert tuple(offsets.shape) == (np.dtype(dtype).itemsize, 256)
+    for p in range(offsets.shape[0]):
+        table = reference.exclusive_bin_offsets(histogram.tile_histograms(keys, 8 * p, TILE))
+        _eq_counts(offsets[p], table[0].numpy())
+    assert launches("digit_histograms") == before  # CPU: the plain version
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("tile", [1, 7, 100, 2048, 4096])
+def test_lookback_bases_are_the_whole_table(dtype, tile):
+    # offset[p] plus the digit's count in earlier tiles is the bin-major
+    # scan of the tiles' counts, at any tile
+    keys = _t(_keys(tile, 3000, dtype, "max"))
+    offsets = histogram.digit_histograms(keys)
+    for p in range(offsets.shape[0]):
+        table = reference.exclusive_bin_offsets(histogram.tile_histograms(keys, 8 * p, tile))
+        got = radix_tiled.lookback_bases_plain(keys, 8 * p, tile, offsets[p])
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), table.numpy())
+
+
+@pytest.mark.parametrize("payload", [None, np.uint8, np.int16, np.float32, np.uint64],
+                         ids=lambda d: "keys" if d is None else np.dtype(d).name)
+@pytest.mark.parametrize("tile", [100, 4096])
+def test_onesweep_pass_is_the_tiled_pass(payload, tile):
+    # every pass of a u64 sort, at two tiles and through the wrapper: the
+    # tiled pass's keys and payload
+    keys = _t(_keys(8, 2500, np.uint64, "max"))
+    vals = None if payload is None else _t(_payload(9, 2500, payload))
+    offsets = histogram.digit_histograms(keys)  # a pass's digits are any pass input's
+    before = launches("onesweep_pass")
+    for p in range(8):
+        want = radix_tiled.radix_pass_tiled(keys, vals, 8 * p, TILE)
+        for got in (radix_tiled.onesweep_pass_plain(keys, vals, 8 * p, offsets[p], tile),
+                    radix_tiled.onesweep_pass(keys, vals, 8 * p, offsets[p])):
+            _eq(got[0], common.bits_view(want[0]).numpy().view(np.uint64))
+            if vals is None:
+                assert got[1] is None
+            else:
+                _eq(got[1], common.bits_view(want[1]).numpy().view(np.dtype(payload)))
+        keys, vals = want
+    assert launches("onesweep_pass") == before
+
+
+@pytest.mark.parametrize("case", ["u32-ties-int16", "u32-kv"])
+def test_sort_onesweep_matches_jax(jax_sort_u32, jax_radix_tiled_slice, case):
+    if case == "u32-ties-int16":
+        keys, vals, jk, jv = jax_sort_u32
+    else:  # ascending u32 keys: the encoding is the identity
+        (keys, vals), (jk, jv) = jax_radix_tiled_slice[("kv32", False)]
+    ok, ov = radix_tiled.sort_onesweep(_t(keys), _t(vals))
+    _eq(ok, jk)
+    _eq(ov, jv)
+
+
+@pytest.mark.parametrize("kind", ["max", "uniform", "constant"])
+def test_sort_onesweep_u64_is_the_stable_sort(kind):
+    keys = _keys(30, 4097, np.uint64, kind)
+    perm = np.argsort(keys, kind="stable")
+    ok, ov = radix_tiled.sort_onesweep(_t(keys), _t(np.arange(keys.size, dtype=np.uint32)))
+    _eq(ok, keys[perm])
+    _eq(ov, perm.astype(np.uint32))
+    alone, none = radix_tiled.sort_onesweep(_t(keys))
+    assert none is None
+    _eq(alone, keys[perm])
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +591,42 @@ def test_radix_tiled_refuses_n_of_2_pow_31():
         radix_tiled.tile_destinations(big, 0, TILE, base)
     with pytest.raises(ValueError, match="2\\^31"):
         radix_tiled.sort_radix_tiled(big)
+
+
+def test_onesweep_refuses_n_of_2_pow_31():
+    big = torch.zeros(1, dtype=torch.int32).view(torch.uint32).expand(1 << 31)
+    with pytest.raises(ValueError, match="2\\^31"):
+        histogram.digit_histograms(big)
+    with pytest.raises(ValueError, match="2\\^31"):
+        radix_tiled.onesweep_pass(big, None, 0, torch.zeros(256, dtype=torch.int32))
+    with pytest.raises(ValueError, match="2\\^31"):
+        radix_tiled.sort_onesweep(big)
+
+
+def test_onesweep_wrappers_reject_what_the_kernels_do_not_take():
+    k = torch.zeros(8, dtype=torch.int32).view(torch.uint32)
+    offset = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        histogram.digit_histograms(torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        histogram.digit_histograms(k.view(2, 4))
+    with pytest.raises(ValueError, match="offset"):
+        radix_tiled.onesweep_pass(k, None, 0, torch.zeros(255, dtype=torch.int32))
+    with pytest.raises(ValueError, match="offset"):
+        radix_tiled.onesweep_pass(k, None, 0, offset.to(torch.int64))
+    with pytest.raises(ValueError):
+        radix_tiled.onesweep_pass(k, None, 32, offset)  # past the key's width
+    with pytest.raises(ValueError):
+        radix_tiled.onesweep_pass(k, torch.zeros(7, dtype=torch.int32), 0, offset)
+    with pytest.raises(TypeError, match="payloads"):
+        radix_tiled.onesweep_pass(k, torch.zeros(8, dtype=torch.complex128), 0, offset)
+    meta = torch.zeros(8, dtype=torch.int32, device="meta").view(torch.uint32)
+    with pytest.raises(ValueError, match="CUDA"):
+        histogram.digit_histograms(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        radix_tiled.onesweep_pass(meta, None, 0, offset.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        radix_tiled.sort_radix_tiled(meta)  # off the CPU the onesweep sort, which needs CUDA
 
 
 def test_radix_wrappers_reject_what_the_kernels_do_not_take():

@@ -21,7 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import vkradixsort_tpu_torch as vt
-from vkradixsort_tpu_torch.ops import kernels
+from vkradixsort_tpu_torch.ops import kernels, radix_tiled
 from vkradixsort_tpu_torch.parallel.distributed import LocalMesh, sort_sharded
 from vkradixsort_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -29,9 +29,9 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 OPS = pathlib.Path(__file__).resolve().parents[1] / "vkradixsort_tpu_torch" / "ops"
 N = 1000
 SMALL = vt.SortConfig(chunk=256)  # the plain radix pass's cost grows with the tile
-WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "tilesort",
-            "mergepath_level", "sort_fused", "block_pass", "global_group", "gather_payload",
-            "place_runs")
+WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "digit_histograms",
+            "onesweep_pass", "tilesort", "mergepath_level", "sort_fused", "block_pass",
+            "global_group", "gather_payload", "place_runs")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,6 +117,15 @@ def test_radix_steps_nest_in_the_engine_and_the_call(dtype, passes):
     assert [s[0] for s in steps] == ["vkrs/radix/histogram", "vkrs/radix/scan",
                                      "vkrs/radix/scatter"] * passes
     assert all(_inside(s, engine) for s in steps)
+
+
+@pytest.mark.parametrize("dtype,passes", [(torch.uint32, 4), (torch.uint64, 8)])
+def test_onesweep_sort_counts_once_and_moves_a_pass(dtype, passes):
+    # the card's radix sort (here through its plain versions): one
+    # histogram step a call, one scatter step a pass, no scan
+    spans = _spans(lambda: radix_tiled.sort_onesweep(_keys(dtype),
+                                                     torch.arange(N, dtype=torch.int32)))
+    assert [s[0] for s in spans] == ["vkrs/radix/histogram"] + ["vkrs/radix/scatter"] * passes
 
 
 @pytest.mark.parametrize("payloads", [0, 1, 3])

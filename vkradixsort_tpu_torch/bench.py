@@ -13,8 +13,9 @@ step and in its order:
   3. sort the 1e6 pairs (values ``arange``) and hold them bitwise against
      numpy's stable argsort;
   4. sort the N pairs (values ``arange`` as uint32) with ``sort_pairs`` on
-     its default route (radix_tiled at 1e8 on the card: its histogram and
-     rank-and-scatter kernels), logging the kernel launches of that call;
+     its default route (radix_tiled at 1e8 on the card: its digit
+     histogram and onesweep pass kernels), logging the kernel launches of
+     that call;
   5. hold 16 windows of 1024 of its output, the first and the last
      included, bitwise against the host runtime's stable argsort
      (``native.oracle_argsort``): keys against the oracle-sorted keys,

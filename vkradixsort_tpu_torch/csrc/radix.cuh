@@ -1,12 +1,17 @@
 // Primitives shared by the radix kernels (histogram.cu, radix_dest.cu,
-// fused.cu, tilesort.cu): an 8-bit digit of a key, an element packed with
-// its position in one shared-memory slot, the stable rank of a warp's
-// elements among equal digits, found by __match_any_sync (strip_rank) or by
-// eight ballots (strip_rank_ballot), and the block scan of an in-block pass
+// onesweep.cu, fused.cu, tilesort.cu): an 8-bit digit of a key, a payload's
+// type, an element packed with its position in one shared-memory slot, the
+// stable rank of a warp's elements among equal digits, found by
+// __match_any_sync (strip_rank), by eight ballots (strip_rank_ballot) or by
+// a ballot and shared-memory atomicOr (strip_rank_or), a strip's digit count
+// (strip_count), and the block scan of an in-block pass
 // (block_digit_offsets).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace vkrs {
 
@@ -18,6 +23,12 @@ constexpr unsigned kNoDigit = kBins;  // what a lane without an element matches 
 __device__ __forceinline__ unsigned digit_at(const int* x, long long i, int stride, int shift) {
   return (static_cast<unsigned>(x[i * stride]) >> shift) & (kBins - 1);
 }
+
+// The unsigned type of a payload of VB bytes (1, 2, 4 or 8).
+template <int VB>
+using Payload = std::conditional_t<
+    VB == 1, uint8_t,
+    std::conditional_t<VB == 2, uint16_t, std::conditional_t<VB == 4, uint32_t, uint64_t>>>;
 
 // Digit (k >> shift) & 255 of an unsigned key.
 template <typename K>
@@ -79,6 +90,43 @@ __device__ __forceinline__ int strip_rank_ballot(int* counter, unsigned d, bool 
   const int start = valid ? counter[d] : 0;
   __syncwarp();  // every lane has read counter[d] before its group's first lane moves it
   if (valid && rank == 0) counter[d] = start + __popc(peers);
+  __syncwarp();
+  return start + rank;
+}
+
+// Counts a warp's 32-element strip into `counter` (the warp's own): every
+// lane of the warp calls it together, `valid` lanes with their digit `d`.
+// The lanes that share lane 0's digit add once, through lane 0, and the
+// others one each, so a strip of one digit (a skewed pass) costs one add.
+__device__ __forceinline__ void strip_count(int* counter, unsigned d, bool valid) {
+  const unsigned lead = __shfl_sync(0xffffffffu, d, 0);
+  const unsigned same = __ballot_sync(0xffffffffu, valid && d == lead);
+  if (valid && d != lead) atomicAdd(&counter[d], 1);
+  if ((threadIdx.x & 31) == 0 && same) atomicAdd(&counter[lead], __popc(same));
+}
+
+// strip_rank with the lanes of equal digit found by one ballot for lane 0's
+// digit and, for the other lanes, one shared-memory atomicOr a lane into
+// peers[d] (the warp's own 256 words, zero between strips): a fraction of
+// the instructions of eight ballots, and one ballot where a strip holds one
+// digit. The same peers, so the same stable rank. Every lane of the warp
+// calls it together; `counter` and `peers` are the warp's.
+__device__ __forceinline__ int strip_rank_or(int* counter, unsigned* peers, unsigned d,
+                                             bool valid) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned lead = __shfl_sync(0xffffffffu, d, 0);
+  const unsigned same = __ballot_sync(0xffffffffu, valid && d == lead);
+  const bool other = valid && d != lead;
+  if (other) atomicOr(&peers[d], 1u << lane);
+  __syncwarp();
+  const unsigned group = other ? peers[d] : same;
+  const int rank = __popc(group & ((1u << lane) - 1u));
+  const int start = valid ? counter[d] : 0;
+  __syncwarp();  // every lane has read counter[d] and peers[d] before its group's leader moves them
+  if (valid && rank == 0) {
+    counter[d] = start + __popc(group);
+    if (other) peers[d] = 0;
+  }
   __syncwarp();
   return start + rank;
 }

@@ -56,11 +56,6 @@ namespace {
 constexpr int kPassMinThreads = kBins;  // one thread per digit in the scan
 constexpr int kPassMaxThreads = 1024;
 
-template <int VB>
-using Payload = std::conditional_t<
-    VB == 1, uint8_t,
-    std::conditional_t<VB == 2, uint16_t, std::conditional_t<VB == 4, uint32_t, uint64_t>>>;
-
 // An element staged in shared memory: key and payload in one slot, so that
 // the rank's scatter moves it with one store. VB = 0: the key alone; a
 // 4-byte key and a payload of at most 4 bytes: one 8-byte word (payload

@@ -21,13 +21,15 @@ class SortConfig:
         keys); above this dispatch raises. One cluster of blocks holds the
         whole array on chip, so on the card the kernel itself takes at most
         ``ops/fused.MAX_N`` (32768, the default).
-      chunk: elements per tile of the radix_tiled pipeline: each histogram
-        row and each block of the rank-and-scatter kernel covers ``chunk``
-        consecutive keys. 16384, the fastest of the H100 sweep of a 1e8
-        stable u32 kv sort over 2048 to 16384 (PERF.md; the JAX package
-        takes 2048): a tile's run of each digit fills more of its write
-        sectors, and the ``[tiles, 256]`` table and its scan shrink. The
-        sorted result does not depend on it.
+      chunk: elements per tile of the radix_tiled per-pass API
+        (``tile_histograms``, ``tile_scatter``, ``radix_pass_tiled``) and of
+        the radix_tiled sort of a CPU tensor: each histogram row and each
+        block of the rank-and-scatter kernel covers ``chunk`` consecutive
+        keys. 16384, the fastest of the H100 sweep of a 1e8 stable u32 kv
+        sort through those passes over 2048 to 16384 (PERF.md; the JAX
+        package takes 2048). The card's radix_tiled sort (onesweep) does
+        not read it: its kernels' tiles follow the key and payload widths.
+        The sorted result does not depend on it.
       tile: grain size in elements per tile. The merge engine's tile-sort
         kernel sorts tiles of ``tile`` elements, floored to a power of two
         and capped at ``ops/merge.default_tile`` as the JAX package floors

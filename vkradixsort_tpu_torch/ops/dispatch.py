@@ -7,9 +7,10 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
   "tiled"        ``torch.sort(stable=True)`` in sign-flipped int space
                  (ops/tiled.py); every device, every dtype
   "merge"        tile-sort + merge-path ladder (ops/merge.py)
-  "radix_tiled"  per pass a histogram, a scan, then one kernel that ranks
-                 and moves keys and payload (ops/radix_tiled.py); at most
-                 one payload, n < 2^31
+  "radix_tiled"  LSD radix passes (ops/radix_tiled.py): on CUDA tensors
+                 one histogram of every pass's digits, then per pass one
+                 kernel that ranks, looks back for its tiles' bases and
+                 moves keys and payload; at most one payload, n < 2^31
   "fused"        the whole LSD radix sort in one launch of one block
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
                  one payload of 4 or 8 bytes

@@ -1,8 +1,11 @@
-"""Per-tile 256-bin digit histograms: one radix pass's counting step.
+"""Digit histograms of the radix sort.
 
-Port of ``vkradixsort_tpu/ops/histogram.py``. ``tile_histograms`` launches
-the CUDA kernel ``csrc/histogram.cu`` on a CUDA tensor and runs its plain
-version ``tile_histograms_plain`` (one ``bincount``) on a CPU tensor.
+Port of ``vkradixsort_tpu/ops/histogram.py``. ``tile_histograms``, per-tile
+256-bin counts of one pass's digit (the JAX package's API, kernel
+``csrc/histogram.cu``), and ``digit_histograms``, every pass's 256 counts
+from one read of the keys, scanned into each digit's first output slot (the
+card's sort route, kernel ``csrc/onesweep.cu``). Each launches its kernel
+on a CUDA tensor and runs its plain version (``bincount``) on a CPU tensor.
 
 The JAX kernel padded the keys to 8 tiles (a Mosaic block-shape artifact)
 with dtype-max sentinels, which landed in bin 255 of the last tiles. Here the
@@ -15,7 +18,13 @@ import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
 from vkradixsort_tpu_torch.ops import kernels, reference
-from vkradixsort_tpu_torch.ops.common import NUM_BINS, cdiv, extract_digit
+from vkradixsort_tpu_torch.ops.common import (
+    BITS_PER_PASS,
+    NUM_BINS,
+    cdiv,
+    extract_digit,
+    num_passes,
+)
 from vkradixsort_tpu_torch.utils import profiling
 
 
@@ -64,3 +73,38 @@ def tile_histograms(enc: torch.Tensor, shift: int,
         kernels.call("histogram", enc.device, x.data_ptr(), n, stride, sh, tile, out.data_ptr())
         profiling.count("launch.tile_histograms")
     return out
+
+
+def digit_histograms_plain(enc: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`digit_histograms`: a ``bincount`` of each
+    pass's digit, then an exclusive cumsum."""
+    counts = torch.stack([torch.bincount(extract_digit(enc, p * BITS_PER_PASS),
+                                         minlength=NUM_BINS)
+                          for p in range(num_passes(enc.dtype))])
+    return (torch.cumsum(counts, 1) - counts).to(torch.int32)
+
+
+def digit_histograms(enc: torch.Tensor) -> torch.Tensor:
+    """``[passes, 256]`` int32: ``offset[p, d]``, the number of keys whose
+    digit ``(enc >> 8p) & 0xFF`` is below ``d``, so the first output slot
+    of digit ``d`` in the stable pass ``p``. ``enc``: uint32 (4 passes) or
+    uint64 (8) encoded keys, n < 2^31."""
+    check_digit_input(enc, 0, 1)
+    if enc.shape[0] >= 1 << 31:
+        raise ValueError(f"the radix offsets are int32, so n must be below 2^31; "
+                         f"got {enc.shape[0]}")
+    if enc.device.type == "cpu":
+        return digit_histograms_plain(enc)
+    if enc.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc.device}")
+    if not enc.is_contiguous():
+        raise ValueError("the radix kernels take contiguous keys")
+    passes, n = num_passes(enc.dtype), enc.shape[0]
+    out = torch.empty(passes * NUM_BINS + 1, dtype=torch.int32, device=enc.device)
+    if n:  # the kernel zeroes out, counts, and keeps its done count in the last word
+        kernels.call("digit_histograms", enc.device, enc.data_ptr(), enc.element_size(), n,
+                     out.data_ptr())
+        profiling.count("launch.digit_histograms")
+    else:
+        out.zero_()
+    return out[:-1].view(passes, NUM_BINS)

@@ -112,6 +112,8 @@ def load() -> ctypes.CDLL:
         "histogram": [ptr, i64, i32, i32, i32, ptr],
         "radix_dest": [ptr, i64, i32, i32, i32, ptr, ptr],
         "radix_scatter": [ptr, i32, ptr, i32, i64, i32, i32, ptr, ptr, ptr],
+        "digit_histograms": [ptr, i32, i64, ptr],
+        "onesweep_pass": [ptr, i32, ptr, i32, i64, i32, ptr, ptr, ptr, ptr],
         "fused": [ptr, ptr, ptr, ptr, i32, i32, i32],
         "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i32, ints, i32],
         "bitonic_group": [ptr, i32, i64, i32, i32, i32],
@@ -122,6 +124,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"vkrs_{name}")
         fn.argtypes = [i32, *args, ptr]
         fn.restype = i32
+    lib.vkrs_onesweep_shape.argtypes = [i32, i32, i32, ints]
+    lib.vkrs_onesweep_shape.restype = i32
     lib.vkrs_error_string.argtypes = [i32]
     lib.vkrs_error_string.restype = ctypes.c_char_p
     profiling.count("kernels.load_s", time.perf_counter() - t0)

@@ -1,7 +1,8 @@
-"""The explicit multi-pass radix pipeline: VkRadixSort's multi_radixsort.
+"""The radix pipeline: VkRadixSort's multi_radixsort, and the card's
+onesweep sort.
 
-Port of ``vkradixsort_tpu/ops/radix_tiled.py``. Per 8-bit digit pass, as
-the reference's two shaders per pass do:
+Port of ``vkradixsort_tpu/ops/radix_tiled.py``. Its API, per 8-bit digit
+pass, as the reference's two shaders per pass do:
 
   1. ``histogram.tile_histograms``: per-tile digit counts (kernel
      ``csrc/histogram.cu``);
@@ -14,12 +15,22 @@ the reference's two shaders per pass do:
      XLA.
 
 ``tile_destinations`` is the same kernel's destination mode: it writes the
-destinations and moves nothing (JAX's ``pass_destinations``). Each kernel
-wrapper takes its plain version only for a CPU tensor. The destinations
-are int32, as in JAX, so the pipeline takes n < 2^31.
+destinations and moves nothing (JAX's ``pass_destinations``).
+``sort_radix_tiled`` runs those passes on a CPU tensor, at the caller's
+tile. On a CUDA tensor it runs ``sort_onesweep`` (kernels
+``csrc/onesweep.cu``): one ``histogram.digit_histograms`` a sort, which
+counts every pass's digits in one read of the keys and scans them, then one
+``onesweep_pass`` a pass, whose tiles find their bases by decoupled
+look-back, so the table and its scan never exist and the kernels' tiles are
+their own (``onesweep_shape``). Each kernel wrapper takes its plain version
+only for a CPU tensor. Destinations and offsets are int32, as in JAX, so the
+pipeline takes n < 2^31.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -52,6 +63,15 @@ def _check_base(enc: torch.Tensor, tile: int, base: torch.Tensor) -> None:
                          f"{base.dtype} {tuple(base.shape)}")
     if enc.device.type != "cpu" and (base.device != enc.device or not base.is_contiguous()):
         raise ValueError("base must be contiguous and on the keys' device")
+
+
+def _check_move(enc: torch.Tensor, values) -> None:
+    if values is not None:
+        if values.shape != enc.shape or values.device != enc.device:
+            raise ValueError("values must have the keys' shape and device")
+        if values.element_size() not in PAYLOAD_BYTES:
+            raise TypeError(f"radix_tiled moves payloads of {PAYLOAD_BYTES} bytes, "
+                            f"got {values.dtype}")
 
 
 def tile_destinations_plain(enc: torch.Tensor, shift: int, tile: int,
@@ -105,12 +125,7 @@ def tile_scatter(enc: torch.Tensor, values, shift: int, tile: int, base: torch.T
     bytes an element, the keys' length. The inputs are not modified."""
     _check_input(enc, shift, tile)
     _check_base(enc, tile, base)
-    if values is not None:
-        if values.shape != enc.shape or values.device != enc.device:
-            raise ValueError("values must have the keys' shape and device")
-        if values.element_size() not in PAYLOAD_BYTES:
-            raise TypeError(f"radix_tiled moves payloads of {PAYLOAD_BYTES} bytes, "
-                            f"got {values.dtype}")
+    _check_move(enc, values)
     if enc.device.type == "cpu":
         return tile_scatter_plain(enc, values, shift, tile, base)
     if enc.device.type != "cuda":
@@ -161,10 +176,115 @@ def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = DEFAULT_
         return tile_scatter(enc, values, shift, tile, base)
 
 
+def lookback_bases_plain(enc: torch.Tensor, shift: int, tile: int,
+                         offset: torch.Tensor) -> torch.Tensor:
+    """What the onesweep pass's look-back gives tile t for digit d: the
+    pass's ``offset[d]`` plus the count of digit d in tiles before t, as a
+    ``[cdiv(n, tile), 256]`` int32 table (``exclusive_bin_offsets`` of the
+    tiles' counts)."""
+    counts = histogram.tile_histograms_plain(enc, shift, tile)
+    return offset + torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+
+def onesweep_pass_plain(enc: torch.Tensor, values, shift: int, offset: torch.Tensor,
+                        tile: int = DEFAULT_CONFIG.chunk):
+    """Plain version of :func:`onesweep_pass`: the counts per tile, their
+    cumsum over tiles plus ``offset``, then the plain move. The result does
+    not depend on ``tile``."""
+    return tile_scatter_plain(enc, values, shift, tile,
+                              lookback_bases_plain(enc, shift, tile, offset))
+
+
+@functools.lru_cache(maxsize=None)
+def onesweep_shape(device_index: int, key_bytes: int, val_bytes: int) -> dict:
+    """The onesweep pass kernel's shape for these widths on a CUDA device:
+    ``threads``, ``per_thread`` (elements a thread), ``tile`` (their
+    product: the elements of one block and of one row of look-back words)
+    and ``blocks_per_sm`` (how many fit an SM)."""
+    shape = (ctypes.c_int * 4)()
+    lib = kernels.load()
+    err = lib.vkrs_onesweep_shape(device_index, key_bytes, val_bytes, shape)
+    if err != 0:
+        raise RuntimeError(f"vkrs_onesweep_shape failed: {lib.vkrs_error_string(err).decode()} "
+                           f"(cudaError {err})")
+    return dict(zip(("threads", "per_thread", "tile", "blocks_per_sm"), shape))
+
+
+def _lookback_words(enc: torch.Tensor, values) -> int:
+    width = 0 if values is None else values.element_size()
+    tile = onesweep_shape(enc.device.index, enc.element_size(), width)["tile"]
+    return cdiv(enc.shape[0], tile) * NUM_BINS + 1
+
+
+def lookback_state(enc: torch.Tensor, values) -> torch.Tensor:
+    """The onesweep passes' look-back words and tile counter for these keys
+    and ``values`` (or None) on their CUDA device: int32, one word a tile and
+    digit and one more, uninitialized (each pass zeroes them). One state
+    serves every pass of a sort."""
+    return torch.empty(_lookback_words(enc, values), dtype=torch.int32, device=enc.device)
+
+
+def onesweep_pass(enc: torch.Tensor, values, shift: int, offset: torch.Tensor, state=None):
+    """One stable radix pass of the keys and ``values`` (or None) over the
+    digit ``(enc >> shift) & 0xFF``, in one kernel that ranks each tile,
+    finds its bases by look-back and moves keys and payload:
+    ``(out_keys, out_values)``. ``offset``: the pass's 256 int32 first
+    slots, a row of :func:`histogram.digit_histograms`; ``state``: the
+    :func:`lookback_state` of these keys and values (allocated when None).
+    The inputs are not modified."""
+    _check_input(enc, shift, 1)
+    _check_move(enc, values)
+    if offset.dtype != torch.int32 or tuple(offset.shape) != (NUM_BINS,):
+        raise ValueError(f"offset must be [{NUM_BINS}] int32, got {offset.dtype} "
+                         f"{tuple(offset.shape)}")
+    if enc.device.type == "cpu":
+        return onesweep_pass_plain(enc, values, shift, offset)
+    if enc.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc.device}")
+    if not enc.is_contiguous() or (values is not None and not values.is_contiguous()):
+        raise ValueError("the onesweep kernel takes contiguous keys and values")
+    if offset.device != enc.device or not offset.is_contiguous():
+        raise ValueError("offset must be contiguous and on the keys' device")
+    if state is None:
+        state = lookback_state(enc, values)
+    elif (state.dtype != torch.int32 or state.device != enc.device
+          or state.numel() != _lookback_words(enc, values)):
+        raise ValueError("state must be the lookback_state of these keys and values")
+    n = enc.shape[0]
+    out_k = torch.empty_like(enc)
+    out_v = None if values is None else torch.empty_like(values)
+    if n:
+        kernels.call("onesweep_pass", enc.device, enc.data_ptr(), enc.element_size(),
+                     0 if values is None else values.data_ptr(),
+                     0 if values is None else values.element_size(), n, shift,
+                     offset.data_ptr(), state.data_ptr(), out_k.data_ptr(),
+                     0 if out_v is None else out_v.data_ptr())
+        profiling.count("launch.onesweep_pass")
+    return out_k, out_v
+
+
+def sort_onesweep(enc: torch.Tensor, values=None):
+    """Full stable LSD sort of uint32/uint64 encoded keys, carrying one
+    payload (or None), as the card runs it: the digits of every pass counted
+    and scanned once (span ``vkrs/radix/histogram``), then one onesweep
+    pass a digit (``vkrs/radix/scatter``), 4 for u32 and 8 for u64, all on
+    one look-back state. On CPU tensors the plain versions. Returns
+    ``(sorted_keys, sorted_values)``; the inputs are not modified."""
+    with profiling.span("vkrs/radix/histogram"):
+        offsets = histogram.digit_histograms(enc)
+    state = None if enc.device.type == "cpu" else lookback_state(enc, values)
+    for p in range(num_passes(enc.dtype)):
+        with profiling.span("vkrs/radix/scatter"):
+            enc, values = onesweep_pass(enc, values, p * BITS_PER_PASS, offsets[p], state)
+    return enc, values
+
+
 def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
-    """Full stable LSD sort of uint32/uint64 encoded keys through the tiled
-    pipeline, carrying one payload (or None): 4 passes for u32, 8 for u64.
-    Returns ``(sorted_keys, sorted_values)``; the inputs are not modified."""
+    """Full stable LSD sort of uint32/uint64 encoded keys, carrying one
+    payload (or None): 4 passes for u32, 8 for u64. On a CPU tensor the
+    tiled passes at ``tile`` (:func:`radix_pass_tiled`); elsewhere
+    :func:`sort_onesweep`, whose kernels tile by their own shape. Returns
+    ``(sorted_keys, sorted_values)``; the inputs are not modified."""
     _check_input(enc, 0, tile)
     if values is not None and values.shape != enc.shape:
         raise ValueError("values must have the keys' shape")
@@ -172,6 +292,8 @@ def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.
     values = None if values is None else values.contiguous()
     if enc.shape[0] <= 1:
         return enc.clone(), None if values is None else values.clone()
+    if enc.device.type != "cpu":
+        return sort_onesweep(enc, values)
     for p in range(num_passes(enc.dtype)):
         enc, values = radix_pass_tiled(enc, values, p * BITS_PER_PASS, tile)
     return enc, values
