@@ -109,7 +109,17 @@ package's bench checks its 1e8 sort.
      u32 kv (beside the JAX package's packed sort, ``sort_packed_u32``), and
      on u64 keys, full-width uniform and Zipf (BASELINE.json config 4), keys
      alone, kv with one 4-byte payload (beside the former two-pass chain,
-     ``sort_flat_u64_chain``) and argsort;
+     ``sort_flat_u64_chain``) and argsort; and (10c) the crossovers behind
+     the kvw, kvw64 and kv2 rows (``wide_crossovers``: tiled against
+     radix_tiled with the benchmark's five lineitem columns, three 4-byte
+     columns, two, and one of 1, 2 or 8 bytes, on u32 and u64 keys, uniform
+     and Zipf), one payload of
+     1, 2, 4 or 8 bytes carried through the onesweep passes against sorted
+     as positions and gathered (``carry_or_gather``, behind
+     ``radix_tiled.CARRY_MAX_BYTES``), and the column gather
+     (``gather_parts``: the lineitem set at 1e8 bitwise its plain version,
+     beside its bound, its plain version and torch's indexing a column, and
+     one and eight columns of each width);
  11. the distributed sort: ``sort_sharded`` over ``LocalMesh([cuda:0] *
      8)`` at 1e8 stable u32 kv, overlap_chunks 1 and 2, local engine "xla"
      and "merge", each exact on the device with no overflow, balance <=
@@ -147,7 +157,9 @@ package's bench checks its 1e8 sort.
      their default routes, each exact on the device with its kernel
      launches counted and timed beside ``torch.sort``: stable kv of u64 Zipf
      keys (BASELINE.json config 4 at the bench size), argsort of u32 and of
-     u64 Zipf keys, ``stable=False`` u32 kv, the two kv sorts' keys also on
+     u64 Zipf keys, ``stable=False`` u32 kv, and stable kv of uniform u64
+     keys with the five lineitem columns (row kvw64: every column bitwise
+     the tiled route's answer), the kv sorts' keys also on
      the host, whole and in 16 windows, bitwise against the host runtime's
      radix oracle sort; then each of the 8 passes of the per-pass API's
      sort of the u64 Zipf keys, and of uniform u64 keys, on the sort's own
@@ -166,8 +178,8 @@ package's bench checks its 1e8 sort.
      value beside N over phase 5's radix_tiled sort.
 
 With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
-(``route_crossovers`` of phase 10, ``dist_local_crossovers`` of phase 11,
-``radix_passes_u64`` of phase 12, the onesweep's parts on u64 keys
+(phase 10c, ``route_crossovers`` of phase 10, ``dist_local_crossovers`` of
+phase 11, ``radix_passes_u64`` of phase 12, the onesweep's parts on u64 keys
 included), for repeated runs, and prints no JSON
 line. Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
@@ -185,7 +197,11 @@ entry the parts it replaced (destinations, widening, torch scatter), from
 PERF.md, as text; the histogram and radix_dest entries (the per-pass API,
 off the sort route) and the digit_histograms and onesweep_pass entries (the
 sort route) add their ms on the 1e8 u64 Zipf sort with its bound, and on
-uniform u64 keys, and their launches in phase 14's benchmark run. The last is the run's JSON
+uniform u64 keys, and their launches in phase 14's benchmark run; the
+gather_columns entry (no TPU kernel: it moves a wide payload set after
+radix_tiled's sort of positions) takes its launches from phase 12's
+lineitem sort on its default route, its ms from the lineitem set at 1e8
+through a random permutation, and adds its ms by width and column count. The last is the run's JSON
 result. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -209,6 +225,7 @@ from vkradixsort_tpu_torch.engine.config import route_for
 from vkradixsort_tpu_torch.ops import (
     bitonic,
     fused,
+    gather,
     histogram,
     kernels,
     merge,
@@ -223,6 +240,7 @@ from vkradixsort_tpu_torch.ops.common import (
     bits_view,
     cdiv,
     extract_digit,
+    positions,
     take,
 )
 from vkradixsort_tpu_torch.utils import profiling
@@ -245,7 +263,7 @@ PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (
 LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "tile_histograms",
           "radix_scatter": "tile_scatter", "radix_dest": "tile_destinations",
           "digit_histograms": "digit_histograms", "onesweep": "onesweep_pass",
-          "fused": "sort_fused", "placement": "place_runs"}
+          "fused": "sort_fused", "placement": "place_runs", "gather_columns": "gather_columns"}
 
 
 def launches_since(before: dict, *kernels_: str) -> dict:
@@ -1536,6 +1554,151 @@ def route_crossovers(dev, zipf: torch.Tensor, smi: str) -> dict:
     return out
 
 
+# --- 10c. wide payload sets: the kvw rows, kv2 again, and the column gather
+
+WIDE_SETS = {  # payload dtypes: the benchmark's five lineitem columns, three 4-byte columns,
+    "lineitem": (torch.int64,) * 4 + (torch.int32,),  # two, and one of 1, 2 or 8 bytes
+    "c3": (torch.int32,) * 3,
+    "kv2": (torch.int32,) * 2,
+    "i8": (torch.int8,),
+    "i16": (torch.int16,),
+    "i64": (torch.int64,),
+}
+
+
+def random_columns(dev, n: int, dtypes, seed: int) -> tuple:
+    """Columns of random bits, one a dtype, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.empty(n, dtype=d, device=dev).random_(torch.iinfo(d).min, None,
+                                                             generator=gen) for d in dtypes)
+
+
+def wide_crossovers(dev, zipf: torch.Tensor, smi: str, sets=tuple(WIDE_SETS)) -> dict:
+    """The crossovers behind ROUTE_TABLE's kvw and kvw64 rows, and kv2's
+    again, at every size of CROSS_SIZES, in turns: stable ``sort_pairs``
+    through tiled (torch.sort, then a gather a column) and radix_tiled (the
+    keys with their u32 positions, then one ``gather_columns``; one payload
+    that fits ``radix_tiled.CARRY_MAX_BYTES`` with its key rides the
+    passes), on u32 and u64 keys, uniform (a fresh remix a call) and Zipf
+    (the first n of ``zipf``; for u32 keys reduced mod 2^32 - 1, as
+    ``utils/fixtures.make_keys`` does), with each of the payload sets
+    ``sets`` of WIDE_SETS (two 4-byte payloads read kv2 on u32 keys and
+    kvw64 on u64 keys). Prints each with the engine that won every turn and
+    the engine the table picks. Returns {(op, payloads, keys, n): {engine:
+    [ms...]}}."""
+    out = {}
+    for n in CROSS_SIZES:
+        z64 = zipf[:n]
+        key_sets = {
+            "u32 uniform": random_u32(dev, n, SEED + 95),
+            "u32 zipf": (z64.view(torch.int64) % 0xFFFFFFFF).to(torch.int32).view(torch.uint32),
+            "u64 uniform": random_u64(dev, n, SEED + 96),
+            "u64 zipf": z64,
+        }
+        payloads = {name: random_columns(dev, n, WIDE_SETS[name], SEED + 97) for name in sets}
+        for key_name, keys in key_sets.items():
+            wide = keys.dtype == torch.uint64
+            for set_name, cols in payloads.items():
+                op = "kv2" if set_name == "kv2" and not wide else "kvw"
+                fns = {e: (lambda k, e=e, cols=cols: vt.sort_pairs(k, cols, backend=e))
+                       for e in ("tiled", "radix_tiled")}
+                t = turns(fns, keys, fresh=key_name.endswith("uniform"))
+                out[(op, set_name, key_name, n)] = t
+                phase("time", f"crossover {op}{'64' if wide else ''} {set_name} {key_name} n={n}: "
+                      + ", ".join(f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
+                      + f" ms; won every turn: {won_every_turn(t)}; the table routes "
+                        f"{route_for(op, n, wide)} [{smi}]")
+        del key_sets, payloads
+    return out
+
+
+def carry_or_gather(dev, smi: str) -> dict:
+    """One payload of 1, 2, 4 or 8 bytes on radix_tiled's onesweep sort,
+    carried through the passes against sorted as u32 positions and moved by
+    one ``gather_columns`` after them, bitwise equal, in turns, on uniform
+    u32 and u64 keys at 2^24 and 1e8: behind ``radix_tiled.CARRY_MAX_BYTES``.
+    Returns {(keys, bytes, n): {"carry": [ms...], "gather": [ms...]}}."""
+    out = {}
+    for n in (1 << 24, N_MAIN):
+        pos = positions(n, dev)
+        for key_name, keys in (("u32", random_u32(dev, n, SEED + 98)),
+                               ("u64", random_u64(dev, n, SEED + 99))):
+            for dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+                (v,) = random_columns(dev, n, (dtype,), SEED + 100)
+
+                def carried(k, v=v):
+                    return radix_tiled.sort_onesweep(k, v)
+
+                def gathered(k, v=v):
+                    out_k, perm = radix_tiled.sort_onesweep(k, pos)
+                    return out_k, gather.gather_columns(perm, (v,))[0]
+
+                a, b = carried(keys), gathered(keys)
+                if not (same_bits(a[0], b[0]) and same_bits(a[1], b[1])):
+                    raise AssertionError(f"{key_name} keys, {dtype} payload, n={n}: carried and "
+                                         "gathered sorts disagree")
+                del a, b
+                t = turns({"carry": carried, "gather": gathered}, keys, fresh=True)
+                width = torch.empty(0, dtype=dtype).element_size()
+                out[(key_name, width, n)] = t
+                phase("time", f"radix_tiled one {width}-byte payload, {key_name} uniform keys "
+                      f"n={n}: " + ", ".join(f"{e} {' / '.join(f'{x:.4f}' for x in ms)}"
+                                             for e, ms in t.items())
+                      + f" ms, bitwise equal; won every turn: {won_every_turn(t)}; "
+                        f"sort_radix_tiled carries it: {radix_tiled.carries(keys, v)} [{smi}]")
+                del v
+        del keys, pos
+    return out
+
+
+def gather_parts(dev, smi: str) -> dict:
+    """The column gather (``csrc/gather.cu``) at 1e8 through a random
+    permutation: the lineitem set in one launch, bitwise its plain version
+    (``gather_columns_plain``: torch indexing by the permutation widened to
+    int64) and timed beside its bound (each position read once, each
+    payload byte read and written once), its plain version and the library
+    (torch's indexing of each column by an int64 permutation made outside
+    the window, as the tiled route gathers); then one column and eight at
+    each width of 1, 2, 4 and 8 bytes, beside their bounds."""
+    n = N_MAIN
+    perm64 = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    perm = perm64.to(torch.int32).view(torch.uint32)
+    cols = random_columns(dev, n, WIDE_SETS["lineitem"], SEED + 101)
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    got = gather.gather_columns(perm, cols)
+    torch.cuda.synchronize()
+    st = {"launches": launches_since(before, "gather_columns")["gather_columns"]}
+    st["err"] = max_abs_err(list(got), list(gather.gather_columns_plain(perm, cols)))
+    del got
+    payload = sum(c.element_size() for c in cols)
+    st["bound"] = bound_ms(n * (4 + 2 * payload))
+    st["ms"] = time_ms(lambda: gather.gather_columns(perm, cols))
+    st["plain"] = time_ms(lambda: gather.gather_columns_plain(perm, cols), reps=3)
+    st["library"] = time_ms(lambda: tuple(take(c, perm64) for c in cols))
+    phase("time", f"n={n} gather_columns, lineitem set ({len(cols)} columns, {payload} B a row): "
+                  f"{st['ms']:.4f} ms in {st['launches']} launch (bound {st['bound']:.4f}, "
+                  f"{st['bound'] / st['ms']:.1%}; plain {st['plain']:.4f}; library, torch's "
+                  f"int64 indexing a column: {st['library']:.4f}); max_abs_err {st['err']} [{smi}]")
+    del cols
+    st["widths"] = {}
+    for width, dtype in ((1, torch.int8), (2, torch.int16), (4, torch.int32), (8, torch.int64)):
+        for ncols in (1, 8):
+            cols = random_columns(dev, n, (dtype,) * ncols, SEED + 102)
+            e = max_abs_err(list(gather.gather_columns(perm, cols)),
+                            list(gather.gather_columns_plain(perm, cols)))
+            st["err"] = max(st["err"], e)
+            ms, bound = time_ms(lambda: gather.gather_columns(perm, cols)), bound_ms(
+                n * (4 + 2 * width * ncols))
+            st["widths"][(width, ncols)] = ms
+            phase("time", f"n={n} gather_columns {ncols} x {width} B: {ms:.4f} ms (bound "
+                          f"{bound:.4f}, {bound / ms:.1%}); max_abs_err {e} [{smi}]")
+            del cols
+    if st["err"]:
+        raise AssertionError(f"gather_columns disagrees with its plain version: {st['err']}")
+    return st
+
+
 # --- 11. the distributed sort (parallel/distributed.py) on one card
 
 DIST_P = 8  # logical shards of the card, as the JAX package's 8 CPU devices
@@ -2148,23 +2311,31 @@ def counted(call):
     out = call()
     torch.cuda.synchronize()
     got = launches_since(c0, "tilesort", "mergepath", "histogram", "radix_scatter", "radix_dest",
-                         "digit_histograms", "onesweep")
+                         "digit_histograms", "onesweep", "gather_columns")
     return out, {k: v for k, v in got.items() if v}
 
 
-def expected_launches(path: str, n: int, wide: bool, dev) -> dict:
-    """The kernel launches of one sort of n keys (u64 if ``wide``) with one
-    4-byte payload on ``path``: one digit histogram and an onesweep pass a
-    digit on radix_tiled; one tile sort and a launch a level on merge; none
-    on tiled (``torch.sort``)."""
+def expected_launches(path: str, n: int, wide: bool, dev, columns: int = 0) -> dict:
+    """The kernel launches of one sort of n keys (u64 if ``wide``) on
+    ``path``, with one 4-byte payload, or with ``columns`` payloads that
+    radix_tiled gathers after its sort of positions: one digit histogram,
+    an onesweep pass a digit and, with ``columns``, one gather launch a
+    ``kernels.MAX_COLUMNS`` columns on radix_tiled; one tile sort and a
+    launch a level on merge; none on tiled (``torch.sort``)."""
     if path == "tiled":
         return {}
     if path == "radix_tiled":
-        return {"digit_histograms": 1, "onesweep": 8 if wide else 4}
+        want = {"digit_histograms": 1, "onesweep": 8 if wide else 4}
+        if columns:
+            want["gather_columns"] = cdiv(columns, kernels.MAX_COLUMNS)
+        return want
     if path == "merge":
         tiles, levels = merge_launches(n, 2 if wide else 1, dev)
         return {"tilesort": tiles, "mergepath": levels}
     raise AssertionError(f"no ROUTE_TABLE row leads to {path!r}")
+
+
+WIDE_SLICE = "stable kv, u64 uniform keys, lineitem columns"
 
 
 def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
@@ -2176,20 +2347,33 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
     uniform u32 keys and of the u64 Zipf keys (a permutation under which
     the keys are non-decreasing, increasing within equal keys);
     ``stable=False`` kv of uniform u32 keys (keys non-decreasing, values a
-    permutation with ``keys_in[values] == keys_out``); the two kv sorts'
-    keys also on the host, bitwise against the host runtime's oracle sort.
-    Returns ({slice: launches}, the host oracle's seconds)."""
+    permutation with ``keys_in[values] == keys_out``); stable kv of uniform
+    u64 keys with the benchmark's five lineitem columns (``WIDE_SLICE``,
+    the ``u64-lineitem-1e8`` cell's call: keys and every column bitwise the
+    tiled route's answer); the kv sorts' keys also on the host, bitwise
+    against the host runtime's oracle sort. Returns ({slice: launches},
+    the host oracle's seconds)."""
     n = N_MAIN
     values = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
     u32 = random_u32(dev, n, SEED + 92)
+    u64 = random_u64(dev, n, SEED + 94)
+    cols = random_columns(dev, n, WIDE_SETS["lineitem"], SEED + 94)
 
     def by_perm(keys, perm):
         return bits_view(keys)[bits_view(perm).to(torch.int64)].view(keys.dtype)
+
+    def same_as_tiled(out):
+        want_k, want_v = vt.sort_pairs(u64, cols, backend="tiled")
+        if not (same_bits(out[0], want_k) and all(map(same_bits, out[1], want_v))):
+            raise AssertionError(f"{WIDE_SLICE}: the default route's answer is not the tiled "
+                                 "route's")
 
     cases = [
         ("stable kv, u64 zipf keys", "kv", zipf, True,
          lambda b: vt.sort_pairs(zipf, values, backend=b),
          lambda out: check_kv(zipf, *out)),
+        (WIDE_SLICE, "kvw", u64, True,
+         lambda b: vt.sort_pairs(u64, cols, backend=b), same_as_tiled),
         ("argsort, u32 uniform keys", "argsort", u32, False,
          lambda b: vt.argsort(u32, backend=b),
          lambda perm: check_kv(u32, by_perm(u32, perm), perm)),
@@ -2209,7 +2393,7 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
             oracle_s += oracle_sorted_keys(f"{what} on its default route {path}", keys, out[0],
                                            smi)
         del out
-        want = expected_launches(path, n, wide, dev)
+        want = expected_launches(path, n, wide, dev, len(cols) if op == "kvw" else 0)
         ms = {"default": time_ms(lambda: call(None), reps=3),
               "tiled": time_ms(lambda: call("tiled"), reps=3)}
         phase("slice", f"{what} n={n} on its default route {path}: exact on the device; "
@@ -2322,12 +2506,16 @@ def bench_twin(dev, radix_ms: list, smi: str) -> dict:
 
 
 def routes_only(dev, smi: str) -> None:
-    """``--routes``: the measurements behind this PR's ROUTE_TABLE rows
-    alone, for repeated runs: the dispatcher's crossovers (phase 10), the
+    """``--routes``: the measurements behind the ROUTE_TABLE rows alone, for
+    repeated runs: the wide payload sets' crossovers, the carry rule and the
+    column gather (phase 10c), the dispatcher's crossovers (phase 10), the
     dist_local crossovers (phase 11) and the radix kernels on the u64
     passes (phase 12). Prints no JSON line."""
     zipf = torch.from_numpy(make_keys(np.random.default_rng(SEED + 70), N_MAIN, np.uint64,
                                       "zipf")).to(dev)
+    wide_crossovers(dev, zipf, smi)
+    carry_or_gather(dev, smi)
+    gather_parts(dev, smi)
     route_crossovers(dev, zipf, smi)
     dist_local_crossovers(dev, smi)
     radix_passes_u64(dev, zipf, "u64 zipf", smi)
@@ -2454,6 +2642,10 @@ def main() -> None:
     zipf = torch.from_numpy(make_keys(np.random.default_rng(SEED + 70), N_MAIN, np.uint64,
                                       "zipf")).to(dev)
     route_crossovers(dev, zipf, smi)
+    wide_crossovers(dev, zipf, smi)
+    carry_or_gather(dev, smi)
+    gst = gather_parts(dev, smi)
+    err["gather_columns"] = gst["err"]
 
     # --- 11. the distributed sort on 8 logical shards of the card
     dist_launches, dst = distributed_main_path(dev, rng, smi)
@@ -2558,6 +2750,15 @@ def main() -> None:
          "u64_zipf_1e8_bound_ms": 8 * u64["zipf"]["onesweep"]["pass_bound"],
          "u64_zipf_shape": u64["zipf"]["onesweep"]["shape"],
          "u64_uniform_1e8_ms": sum(u64["uniform"]["onesweep"]["pass"])},
+        {"name": "gather_columns", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/gather.cu",
+         "replaces": "no TPU kernel: torch's int64 indexing a column after a sort of the keys "
+                     "with their positions (ops/segsort.sort_flat_pairs)",
+         "launches": launches["routes"][WIDE_SLICE]["gather_columns"],
+         "max_abs_err": err["gather_columns"], "ms": gst["ms"],
+         "plain_ms": gst["plain"], "bound_ms": gst["bound"], "bound_by": "bytes",
+         "library_ms": gst["library"], "payloads": "lineitem: 4 x int64 + int32, 1e8 rows",
+         "ms_by_width_and_columns": {f"{w}x{c}": v for (w, c), v in gst["widths"].items()}},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

@@ -19,6 +19,7 @@ from vkradixsort_tpu_torch.ops import (
     bitonic,
     common,
     fused,
+    gather,
     histogram,
     merge,
     radix_tiled,
@@ -320,7 +321,10 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
 @pytest.mark.parametrize("op,n,engine", [
     ("kv", 1 << 20, "tiled"), ("kv", (1 << 24) + 5, "radix_tiled"),
     ("keys", (1 << 20) + 3, "tiled"), ("keys", (1 << 23) - 3, "tiled"),
-    ("keys", (1 << 24) + 5, "radix_tiled"), ("kv2", (1 << 24) + 5, "tiled"),
+    ("keys", (1 << 24) + 5, "radix_tiled"), ("kv2", (1 << 22) + 5, "tiled"),
+    ("kv2", (1 << 24) + 5, "radix_tiled"), ("kvw", (1 << 24) + 5, "tiled"),
+    ("kvw", (1 << 26) + 5, "radix_tiled"), ("kvw64", (1 << 22) + 5, "tiled"),
+    ("kvw64", (1 << 24) + 5, "radix_tiled"),
     ("keys64", (1 << 25) - 3, "tiled"), ("keys64", (1 << 25) + 5, "radix_tiled"),
     ("kv64", (1 << 23) - 3, "tiled"), ("kv64", (1 << 24) + 5, "radix_tiled"),
     ("kv_unstable", (1 << 23) - 3, "tiled"), ("kv_unstable", (1 << 24) + 5, "radix_tiled"),
@@ -329,16 +333,19 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
     ("argsort64", (1 << 25) + 5, "tiled"),
 ])
 def test_default_route_follows_the_table(dev, op, n, engine):
-    # each row of ROUTE_TABLE leads to its engine's kernels; a two-payload
-    # call never reaches radix_tiled, which takes one payload
+    # each row of ROUTE_TABLE leads to its engine's kernels; a wide payload
+    # set (three payloads, one of 8 bytes, on u32 keys; two 4-byte ones on
+    # u64 keys) reads kvw and gathers its payloads on radix_tiled
     from vkradixsort_tpu_torch.engine.config import route_for
 
     wide, base = op.endswith("64"), op.removesuffix("64")
     assert route_for(base, n, wide) == engine
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint64 if wide else np.uint32)
-    vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32)]
-    vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2}[base]]
+    vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32),
+            rng.integers(-(2**62), 2**62, size=n)]
+    vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2,
+                  "kvw": 2 if wide else 3}[base]]
     before = (launches("tilesort"), launches("onesweep_pass"))
     tk = torch.from_numpy(keys).to(dev)
     perm = np.argsort(keys, kind="stable")
@@ -356,7 +363,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     for o, v in zip(ov, vals):
         np.testing.assert_array_equal(common.bits_view(o).cpu().numpy(),
-                                      v.view(np.int32)[perm])
+                                      v.view(f"i{v.itemsize}")[perm])
 
 
 def _route_keys(rng, n, dtype):
@@ -559,6 +566,7 @@ def test_radix_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
     monkeypatch.setattr(radix_tiled, "lookback_bases_plain", refuse)
     monkeypatch.setattr(reference, "scatter", refuse)  # torch's scatter, the replaced move
     monkeypatch.setattr(fused, "sort_fused_plain", refuse)
+    monkeypatch.setattr(gather, "gather_columns_plain", refuse)
     rng = np.random.default_rng(8)
     for backend, n in [("radix_tiled", (1 << 20) + 3), ("fused", 30_000)]:
         keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
@@ -1004,3 +1012,127 @@ def test_bench_gates_and_pair_timing_on_the_card(dev):
     payloads = (values, torch.randn(n, device=dev))
     seconds = measure_pairs_seconds_per_call(vt.sort_pairs, keys, payloads)
     assert 0 < seconds < 1
+
+
+# ---------------------------------------------------------------------------
+# wide payload sets: gather_columns, and radix_tiled's payload-set path (the
+# keys with their u32 positions, then one gather) against the tiled route
+
+N_WIDE = 100_000_000
+LINEITEM = (torch.int64,) * 4 + (torch.int32,)
+
+
+def _columns(dev, n, dtypes, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.empty(n, dtype=d, device=dev).random_(torch.iinfo(d).min, None,
+                                                             generator=gen) for d in dtypes)
+
+
+def _wide_keys(dev, n, dtype, seed):
+    """Keys of random bits, an eighth of them from 1000 values (ties)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = {torch.uint32: torch.int32, torch.uint64: torch.int64}[dtype]
+    k = torch.empty(n, dtype=bits, device=dev).random_(torch.iinfo(bits).min, None, generator=gen)
+    k[::8] = k[::8] % 1000
+    return k.view(dtype)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, (1 << 20) + 3, N_WIDE])
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+@pytest.mark.parametrize("ncols", [1, 8])
+def test_gather_columns_matches_plain(dev, n, width, ncols):
+    dtype = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[width]
+    gen = torch.Generator(device=dev).manual_seed(n + ncols)
+    perm = torch.randperm(n, device=dev, generator=gen).to(torch.int32).view(torch.uint32)
+    cols = _columns(dev, n, (dtype,) * ncols, n + width)
+    before = launches("gather_columns")
+    got = gather.gather_columns(perm, cols)
+    assert launches("gather_columns") == before + 1
+    _equal([common.bits_view(g) for g in got],
+           [common.bits_view(w) for w in gather.gather_columns_plain(perm, cols)])
+
+
+@pytest.mark.parametrize("ncols", [8, 9, 17])
+def test_gather_columns_unaligned_and_past_one_launch(dev, ncols):
+    # a permutation 4 bytes off a 16-byte boundary takes the scalar loads;
+    # more than 8 columns take one launch per 8
+    n = (1 << 16) + 5
+    buf = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    buf[1:] = torch.randperm(n, device=dev).to(torch.int32)
+    perm = buf[1:].view(torch.uint32)
+    cols = _columns(dev, n, (torch.int8, torch.int16, torch.int32, torch.int64) * 5, 3)[:ncols]
+    before = launches("gather_columns")
+    got = gather.gather_columns(perm, cols)
+    assert launches("gather_columns") == before + -(-ncols // 8)
+    _equal([common.bits_view(g) for g in got],
+           [common.bits_view(w) for w in gather.gather_columns_plain(perm, cols)])
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 24, N_WIDE])
+@pytest.mark.parametrize("key_dtype", [torch.uint32, torch.uint64])
+@pytest.mark.parametrize("descending", [False, True])
+def test_wide_radix_tiled_matches_the_tiled_route(dev, n, key_dtype, descending):
+    keys = _wide_keys(dev, n, key_dtype, n)
+    cols = _columns(dev, n, LINEITEM + (torch.int8, torch.int16), n + 1)
+    before = (launches("gather_columns"), launches("onesweep_pass"))
+    rk, rv = vt.sort_pairs(keys, cols, backend="radix_tiled", descending=descending)
+    torch.cuda.synchronize()
+    assert launches("gather_columns") == before[0] + 1
+    assert launches("onesweep_pass") == before[1] + 8 * key_dtype.itemsize // 8
+    tk, tv = vt.sort_pairs(keys, cols, backend="tiled", descending=descending)
+    _equal([common.bits_view(rk)] + [common.bits_view(v) for v in rv],
+           [common.bits_view(tk)] + [common.bits_view(v) for v in tv])
+
+
+@pytest.mark.parametrize("key_dtype", [torch.uint32, torch.uint64])
+@pytest.mark.parametrize("payload", [torch.int8, torch.int16, torch.int32, torch.int64])
+def test_one_payload_on_radix_tiled_matches_the_tiled_route(dev, key_dtype, payload):
+    # carried through the passes or gathered after them (radix_tiled.carries)
+    n = (1 << 22) + 7
+    keys = _wide_keys(dev, n, key_dtype, 5)
+    (col,) = _columns(dev, n, (payload,), 6)
+    carried = radix_tiled.carries(keys, col)
+    before = launches("gather_columns")
+    rk, rv = vt.sort_pairs(keys, col, backend="radix_tiled")
+    assert launches("gather_columns") == before + (0 if carried else 1)
+    tk, tv = vt.sort_pairs(keys, col, backend="tiled")
+    _equal([common.bits_view(rk), common.bits_view(rv)],
+           [common.bits_view(tk), common.bits_view(tv)])
+
+
+@pytest.mark.parametrize("key_dtype", [torch.uint32, torch.uint64])
+@pytest.mark.parametrize("payload", [torch.int8, torch.int16, torch.int64])
+def test_one_payload_of_any_width_reads_the_kv_row(dev, key_dtype, payload):
+    from vkradixsort_tpu_torch.engine.config import route_for
+
+    wide = key_dtype == torch.uint64
+    for n in ((1 << 20) + 3, (1 << 24) + 5):
+        keys = _wide_keys(dev, n, key_dtype, n)
+        (col,) = _columns(dev, n, (payload,), 7)
+        before = profiling.counters()
+        ok, ov = vt.sort_pairs(keys, col)
+        torch.cuda.synchronize()
+        assert profiling.since(before).get("route." + route_for("kv", n, wide)) == 1
+        tk, tv = vt.sort_pairs(keys, col, backend="tiled")
+        _equal([common.bits_view(ok), common.bits_view(ov)],
+               [common.bits_view(tk), common.bits_view(tv)])
+
+
+def test_lineitem_sort_counts_one_route_and_one_gather(dev):
+    from vkradixsort_tpu_torch.engine.config import route_for
+
+    assert route_for("kvw", N_WIDE, True) == "radix_tiled"
+    keys = _wide_keys(dev, N_WIDE, torch.uint64, 9)
+    cols = _columns(dev, N_WIDE, LINEITEM, 10)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = profiling.counters()
+        ok, ov = vt.sort_pairs(keys, cols)
+        torch.cuda.synchronize()
+        moved = profiling.since(before)
+        assert moved.get("route.radix_tiled") == 1 and moved.get("launch.gather_columns") == 1
+        assert moved.get("launch.digit_histograms") == 1 and moved.get("launch.onesweep_pass") == 8
+    from sortbench import reference as plain
+
+    ref_k, ref_v = plain.sort_pairs(keys, cols)
+    assert plain.mismatched_rows(ok, ov, ref_k, ref_v) == 0

@@ -114,9 +114,28 @@ def test_default_route_decides_from_the_tensor():
     assert route_for("kv", (1 << 23) + 1) == "radix_tiled"
     assert route_for("keys", 1 << 23) == "tiled"
     assert route_for("keys", 1 << 24) == "radix_tiled"
-    assert route_for("kv2", 1 << 27) == "tiled"  # torch.sort wins every size measured
+    assert route_for("kv2", 1 << 23) == "tiled"
+    assert route_for("kv2", (1 << 23) + 1) == "radix_tiled"
+    assert route_for("kvw", 1 << 25) == "tiled"  # wide payload sets: positions and a gather
+    assert route_for("kvw", (1 << 25) + 1) == "radix_tiled"
+    assert route_for("kvw", 1 << 23, wide=True) == "tiled"
+    assert route_for("kvw", (1 << 23) + 1, wide=True) == "radix_tiled"
     assert route_for("kv", 1 << 23, wide=True) == "tiled"  # 64-bit keys: the kv64 rows
     assert route_for("kv", 1 << 27, wide=True) == "radix_tiled"
+
+
+@pytest.mark.parametrize("op,widths,wide,row", [
+    ("kv", (), False, "keys"), ("kv", (4,), False, "kv"), ("kv", (1,), False, "kv"),
+    ("kv", (8,), True, "kv"), ("kv", (4, 4), False, "kv2"), ("kv", (4, 4), True, "kvw"),
+    ("kv", (2, 4), False, "kvw"), ("kv", (4, 4, 4), False, "kvw"),
+    ("kv_unstable", (1,), False, "kv_unstable"), ("kv_unstable", (4, 4), False, "kvw"),
+    ("argsort", (), True, "argsort"),
+])
+def test_payload_set_reads_its_route_row(op, widths, wide, row):
+    from vkradixsort_tpu_torch.ops.dispatch import _table_op
+
+    dtypes = {1: torch.int8, 2: torch.int16, 4: torch.float32, 8: torch.int64}
+    assert _table_op(op, tuple(torch.zeros(2, dtype=dtypes[w]) for w in widths), wide) == row
 
 
 def test_bad_calls_raise():

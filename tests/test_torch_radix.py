@@ -555,7 +555,7 @@ def test_reference_backend_carries_many_payloads():
 # refusals
 
 
-@pytest.mark.parametrize("backend", ["radix_tiled", "fused"])
+@pytest.mark.parametrize("backend", ["fused", "samplesort"])
 def test_one_payload_engines_refuse_two(backend):
     k = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="single payload"):

@@ -160,13 +160,15 @@ def test_u64_kv_on_tiled_matches_jax(distribution, descending):
     _eq(ov, jv)
 
 
-# engines that accept each ROUTE_TABLE operation: radix_tiled moves one
-# payload (argsort's positions are one) and is no local engine of the
-# distributed sort, whose "tiled" is its library sort
+# engines that accept each ROUTE_TABLE operation: radix_tiled moves any set
+# of 1-, 2-, 4- and 8-byte payloads, merge none of 1 or 2 bytes (so no kvw
+# row leads there), and radix_tiled is no local engine of the distributed
+# sort, whose "tiled" is its library sort
 ACCEPTS = {
     "keys": {"tiled", "merge", "radix_tiled"},
     "kv": {"tiled", "merge", "radix_tiled"},
-    "kv2": {"tiled", "merge"},
+    "kv2": {"tiled", "merge", "radix_tiled"},
+    "kvw": {"tiled", "radix_tiled"},
     "argsort": {"tiled", "merge", "radix_tiled"},
     "kv_unstable": {"tiled", "merge", "radix_tiled"},
     "dist_local": {"tiled", "merge"},

@@ -31,7 +31,7 @@ N = 1000
 SMALL = vt.SortConfig(chunk=256)  # the plain radix pass's cost grows with the tile
 WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "digit_histograms",
             "onesweep_pass", "tilesort", "mergepath_level", "sort_fused", "block_pass",
-            "global_group", "gather_payload", "place_runs")
+            "global_group", "gather_payload", "place_runs", "gather_columns")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -126,6 +126,18 @@ def test_onesweep_sort_counts_once_and_moves_a_pass(dtype, passes):
     spans = _spans(lambda: radix_tiled.sort_onesweep(_keys(dtype),
                                                      torch.arange(N, dtype=torch.int32)))
     assert [s[0] for s in spans] == ["vkrs/radix/histogram"] + ["vkrs/radix/scatter"] * passes
+
+
+@pytest.mark.parametrize("payloads", [2, 5])
+def test_radix_tiled_payload_set_gathers_once(payloads):
+    # a payload set rides as positions through the passes (here the CPU's
+    # tiled passes), then one gather step moves every column
+    vals = tuple(torch.arange(N, dtype=torch.int64) + i for i in range(payloads))
+    spans = _spans(lambda: vt.sort_pairs(_keys(), vals, backend="radix_tiled"))
+    names = [s[0] for s in spans]
+    assert names.count("vkrs/radix/gather") == 1 and names[-1] == "vkrs/radix/gather"
+    assert names.count("vkrs/radix/scatter") == 4
+    assert _inside(spans[-1], spans[1])
 
 
 @pytest.mark.parametrize("payloads", [0, 1, 3])

@@ -55,10 +55,11 @@ DEFAULT_CONFIG = SortConfig()
 # Default route of ``backend=None`` for CUDA tensors, per operation and size:
 # rows are (max_n, engine), scanned in order; the first row with n <= max_n
 # wins, and an operation without rows routes to "tiled". The operations:
-# stable sorts of 32-bit encoded keys, "keys" alone, "kv" with one 4-byte
-# payload, "kv2" with two; "argsort"; "kv_unstable" (``stable=False``, one
-# 4-byte payload); each with its "64" twin for 64-bit keys. Other payload
-# sets take "tiled" (ops/dispatch._route).
+# stable sorts of 32-bit encoded keys, "keys" alone, "kv" with one payload
+# of 1, 2, 4 or 8 bytes, "kv2" with two 4-byte ones; "kvw" with any other
+# set of two or more (``stable=False`` too); "argsort"; "kv_unstable"
+# (``stable=False``, one payload); each with its "64" twin for 64-bit keys,
+# where two 4-byte payloads read "kvw64" (ops/dispatch._table_op).
 #
 # Every row is an H100 measurement (chip_smoke.py phases 10 and 11, PERF.md
 # section 5, 700 W): at 2^16, 2^18, ..., 2^26 and 1e8, each engine in turns.
@@ -71,9 +72,44 @@ DEFAULT_CONFIG = SortConfig()
 #     radix_tiled's 0.486-0.487); radix_tiled from 2^24 (kv 0.90 against
 #     1.47 ms; 1e8 4.94 against 9.22; keys 1e8 3.64 against 5.75). Merge
 #     beat torch.sort on keys at 2^22 in three runs (0.266 against 0.325 ms)
-#     and lost in two whose host was slower, so it has no row.
-#   - kv2: torch.sort at every size from 2^18 (1e8: 12.68 against merge's
-#     18.98 ms); radix_tiled takes one payload.
+#     and lost in two whose host was slower, so it has no row. One payload
+#     of 1, 2 or 8 bytes (three runs of wide_crossovers, uniform and Zipf
+#     keys): radix_tiled, which carries it, won every turn of every run from
+#     2^22 on u32 keys (2^24 uniform: 0.585-0.589 against 1.186-1.193 ms
+#     for 1 byte, 0.862-0.870 against 1.574-1.581 for 8; 1e8 3.11 against
+#     8.39, 4.71 against 9.36) and from 2^24 on u64 keys (1-byte 2^24
+#     1.411-1.421 against 2.544-2.558; 8 bytes, gathered, 2.423-2.431
+#     against 2.936-2.950; 1e8 7.44 against 16.37, 13.94 against 17.35),
+#     so the kv and kv64 rows hold for every width.
+#   - kv2 (three runs of chip_smoke.py wide_crossovers): torch.sort up to
+#     2^22, where radix_tiled won both turns in two runs (uniform 0.377-0.382
+#     against 0.423-0.430 ms) and lost on Zipf keys in the third (0.467-0.478
+#     against 0.380-0.381); radix_tiled from 2^24 in every run, uniform and
+#     Zipf (1.80-1.81 against 1.87-1.89; 1.45-1.46 against 1.55-1.56; 1e8:
+#     11.29-11.37 against 12.56-12.59, 8.64-8.66 against 9.62-9.63). It sorts
+#     the keys with their positions and gathers both payloads in one launch.
+#     Merge lost kv2 at every size from 2^18 (1e8: 18.98 against torch.sort's
+#     12.68) and was not timed again.
+#   - kvw, kvw64: the same sweep with the benchmark's five lineitem columns
+#     (4 x int64 + int32) and three 4-byte columns (c3), u32 and u64 keys,
+#     uniform and Zipf (u32 Zipf: the u64 Zipf keys mod 2^32 - 1).
+#     kvw: torch.sort up to 2^24, where it won both turns on lineitem
+#     (3.62 against 3.69-3.70 ms uniform, 2.92 against 2.95 Zipf) and on
+#     c3 uniform; radix_tiled from 2^26 on all four (1e8 lineitem 22.18-22.20
+#     against 23.83 uniform, 17.20 against 18.12 Zipf; c3 14.77-14.78
+#     against 16.03-16.04). kvw64: torch.sort up to 2^22 (lineitem 1.07
+#     against 1.20-1.21 uniform, 0.947 against 1.048 Zipf), radix_tiled from
+#     2^24 on all four (lineitem 4.767-4.770 against 4.984-4.985 uniform;
+#     1e8: 28.02-28.03 against 31.80, 22.26 against 24.78 Zipf; c3 20.63
+#     against 24.00). The gather, one random read a row and column, is most
+#     of radix_tiled's time (17.6 of 28.0 ms at 1e8 lineitem). Two 4-byte
+#     payloads on u64 keys (kvw64, three more runs): radix_tiled won every
+#     turn from 2^22 (2^24 2.859-2.867 against 3.234-3.244 uniform,
+#     2.371-2.378 against 2.702-2.706 Zipf; 1e8 17.15-17.18 against 20.56-
+#     20.57). Sets of two or more with 1-, 2- or 8-byte members were not
+#     timed: they take the same positions and gather as c3 and lineitem,
+#     whose crossover bounds them. Merge takes no 1- or 2-byte payloads and
+#     has no kvw row.
 #   - kv64: torch.sort up to 2^22, radix_tiled from 2^24 on both key sets
 #     (2^24: 2.70-2.73 against 2.81-2.83 ms uniform, 2.20-2.24 against
 #     2.39-2.40 Zipf; 1e8: 14.11 against 17.06, 11.45 against 14.03).
@@ -118,6 +154,9 @@ ROUTE_TABLE: dict = {
     "kv64": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "kv_unstable": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "argsort": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
+    "kv2": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
+    "kvw": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
+    "kvw64": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "dist_local": [((1 << 22) - 1, "tiled"), (float("inf"), "merge")],
     "dist_local64": [(1 << 23, "tiled"), (1 << 25, "merge"), (float("inf"), "tiled")],
 }

@@ -10,7 +10,10 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
   "radix_tiled"  LSD radix passes (ops/radix_tiled.py): on CUDA tensors
                  one histogram of every pass's digits, then per pass one
                  kernel that ranks, looks back for its tiles' bases and
-                 moves keys and payload; at most one payload, n < 2^31
+                 moves keys and payload; any set of 1-, 2-, 4- and 8-byte
+                 payloads (one rides the passes; a wider set rides as u32
+                 positions, then one gather kernel moves every column,
+                 ops/gather.py), n < 2^31
   "fused"        the whole LSD radix sort in one launch of one block
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
                  one payload of 4 or 8 bytes
@@ -24,11 +27,11 @@ The merge, radix_tiled, fused, bitonic and samplesort engines launch
 hand-written CUDA kernels on CUDA tensors and run their plain versions on
 CPU tensors. ``backend=None`` decides from the tensor, up front: CUDA
 tensors follow ``engine/config.ROUTE_TABLE`` (tiled or radix_tiled, by
-operation, key width and size, as measured on the H100); CPU tensors take
-"tiled". No default route leads to merge, fused, reference, bitonic or
-samplesort. Every entry point is stable, ``sort_pairs(stable=False)`` too,
-and bitwise-exact against the JAX package's stable results on the same
-inputs.
+operation, payload set, key width and size, as measured on the H100); CPU
+tensors take "tiled". No default route leads to merge, fused, reference,
+bitonic or samplesort. Every entry point is stable,
+``sort_pairs(stable=False)`` too, and bitwise-exact against the JAX
+package's stable results on the same inputs.
 
 Each entry point runs in the span ``vkrs/<entry point>`` and the engine a
 call takes in ``vkrs/engine/<engine>`` (``utils/profiling.span``); each
@@ -63,16 +66,26 @@ from vkradixsort_tpu_torch.utils import profiling
 ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
 
 
+def _table_op(op: str, vals: tuple, wide: bool) -> str:
+    """The ``ROUTE_TABLE`` operation, without its "64", of a call ``op``
+    ("kv", "kv_unstable" or "argsort") with payloads ``vals`` on 32-bit
+    keys, or on 64-bit keys if ``wide``: "kv" with no payload reads "keys";
+    one payload of any width keeps "kv" or "kv_unstable"; two 4-byte
+    payloads of a stable sort on 32-bit keys read "kv2"; every other set of
+    two or more reads "kvw" (``stable=False`` too: the stable carry)."""
+    if len(vals) > 1:
+        four = all(v.element_size() == 4 for v in vals)
+        return "kv2" if op == "kv" and not wide and len(vals) == 2 and four else "kvw"
+    return "keys" if op == "kv" and not vals else op
+
+
 def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = "kv") -> str:
     """The engine of a call: ``backend`` when given; else "tiled" for CPU
-    tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of ``op`` at the
-    call's size: "kv" reads "keys", "kv" or "kv2" by the number of 4-byte
-    payloads; "argsort"; "kv_unstable" (one payload); each with its "64"
-    twin for u64-encoded keys. Other payload sets take "tiled": the rows
-    were measured for at most two 4-byte payloads (merge carries a wider set
-    as a local index and a gather a payload, which no row has timed). A row
-    never sends a call to an engine that refuses it (JAX's rule):
-    radix_tiled takes one payload (argsort's positions are one) and
+    tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of the call's
+    payload set (:func:`_table_op`: "keys", "kv", "kv2", "kvw", "argsort",
+    "kv_unstable"; each with its "64" twin for u64-encoded keys) at the
+    call's size. A row never sends a call to an engine that refuses it
+    (JAX's rule): radix_tiled takes payloads of 1, 2, 4 or 8 bytes and
     n < 2^31."""
     if backend is not None:
         if backend not in ENGINES:
@@ -80,13 +93,11 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = 
         return backend
     if keys.device.type != "cuda":
         return "tiled"
-    if any(v.element_size() != 4 for v in vals) or len(vals) > merge.MAX_KERNEL_CARRY:
-        return "tiled"  # the table's rows are for at most two 4-byte payloads
-    if op == "kv":
-        op = ("keys", "kv", "kv2")[len(vals)]
+    wide = sortable_dtype(keys.dtype) == torch.uint64
     n = keys.shape[0]
-    path = route_for(op, n, sortable_dtype(keys.dtype) == torch.uint64)
-    if path == "radix_tiled" and (len(vals) > 1 or n >= 1 << 31):
+    path = route_for(_table_op(op, vals, wide), n, wide)
+    if path == "radix_tiled" and (n >= 1 << 31 or any(
+            v.element_size() not in radix_tiled.PAYLOAD_BYTES for v in vals)):
         return "tiled"
     return path
 
@@ -99,10 +110,7 @@ def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str)
     if path == "merge":
         return merge.sort_merge(enc, vals, tile=config.tile)
     if path == "radix_tiled":
-        _only_one_payload(path, vals)
-        out_k, out_v = radix_tiled.sort_radix_tiled(enc, vals[0] if vals else None,
-                                                    tile=config.chunk)
-        return out_k, (out_v,) if vals else ()
+        return radix_tiled.sort_radix_tiled(enc, vals, tile=config.chunk)
     if path == "fused":
         _only_one_payload(path, vals)
         out_k, out_v = fused.sort_fused(enc, vals[0] if vals else None, config)
@@ -145,8 +153,8 @@ def _only_one_payload(path: str, vals: tuple) -> None:
     if len(vals) > 1:
         raise NotImplementedError(
             f"engine {path!r} moves a single payload plane; pass one values "
-            "tensor, or use the 'tiled'/'merge'/'bitonic'/'reference' engines for "
-            "multi-payload sorts"
+            "tensor, or use the 'tiled'/'merge'/'radix_tiled'/'bitonic'/'reference' "
+            "engines for multi-payload sorts"
         )
 
 

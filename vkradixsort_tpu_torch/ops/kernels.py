@@ -30,6 +30,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _VOIDP4 = ctypes.c_void_p * 4
 _VOIDP5 = ctypes.c_void_p * 5  # a plane bundle of the merge kernels (csrc/planes.cuh)
+MAX_COLUMNS = 8  # columns of one gather_columns launch (csrc/gather.cu)
+_VOIDP8 = ctypes.c_void_p * MAX_COLUMNS
+_INT32X8 = ctypes.c_int * MAX_COLUMNS
 _U64X4 = ctypes.c_ulonglong * 4
 
 
@@ -119,6 +122,7 @@ def load() -> ctypes.CDLL:
         "bitonic_group": [ptr, i32, i64, i32, i32, i32],
         "bitonic_gather": [ptr, ptr, ptr, i64, i32],
         "placement": [_VOIDP4, _VOIDP4, _U64X4, i32, i32, i32, ptr, ptr, i32, i64, i32, i32],
+        "gather_columns": [ptr, i64, i32, _VOIDP8, _VOIDP8, ints],
     }
     for name, args in signatures.items():
         fn = getattr(lib, f"vkrs_{name}")
@@ -150,6 +154,13 @@ def call(name: str, device: torch.device, *args) -> None:
 def pointers(tensors: list):
     """The data pointers of up to four tensors, as a C array."""
     return _VOIDP4(*(t.data_ptr() for t in tensors))
+
+
+def columns(tensors: list):
+    """The data pointers of up to :data:`MAX_COLUMNS` tensors, and their
+    element widths, as C arrays."""
+    return (_VOIDP8(*(t.data_ptr() for t in tensors)),
+            _INT32X8(*(t.element_size() for t in tensors)))
 
 
 def u64s(values: list):

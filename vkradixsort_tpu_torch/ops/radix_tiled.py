@@ -25,6 +25,12 @@ look-back, so the table and its scan never exist and the kernels' tiles are
 their own (``onesweep_shape``). Each kernel wrapper takes its plain version
 only for a CPU tensor. Destinations and offsets are int32, as in JAX, so the
 pipeline takes n < 2^31.
+
+``sort_radix_tiled`` takes a payload set too, where the JAX engine takes one
+payload: one payload that fits a 512-thread pass with its key rides the
+passes; any other set rides as u32 positions, and ``gather.gather_columns``
+(kernel ``csrc/gather.cu``) moves every payload through the sorted positions
+in one launch.
 """
 
 from __future__ import annotations
@@ -35,17 +41,26 @@ import functools
 import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
-from vkradixsort_tpu_torch.ops import histogram, kernels, reference
+from vkradixsort_tpu_torch.ops import gather, histogram, kernels, reference
 from vkradixsort_tpu_torch.ops.common import (
     BITS_PER_PASS,
     NUM_BINS,
     cdiv,
     extract_digit,
     num_passes,
+    positions,
 )
 from vkradixsort_tpu_torch.utils import profiling
 
 PAYLOAD_BYTES = (1, 2, 4, 8)  # payload widths the scatter kernel moves
+# sort_radix_tiled carries one payload through the passes while key and
+# payload bytes together are at most this (the pass kernel's 512-thread
+# instances); any other payload set rides as u32 positions and is gathered
+# after them. H100, 1e8 uniform keys (PERF.md): u32 keys carry every width
+# (8-byte payload 4.71 against 7.16 ms); u64 keys carry 1, 2 and 4 bytes
+# (4: 9.43 against 12.77) and gather 8 (13.01 against 13.81; 2^24: 2.265
+# against 2.514)
+CARRY_MAX_BYTES = 12
 
 
 def _check_input(enc: torch.Tensor, shift: int, tile: int) -> None:
@@ -279,21 +294,53 @@ def sort_onesweep(enc: torch.Tensor, values=None):
     return enc, values
 
 
-def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
-    """Full stable LSD sort of uint32/uint64 encoded keys, carrying one
-    payload (or None): 4 passes for u32, 8 for u64. On a CPU tensor the
-    tiled passes at ``tile`` (:func:`radix_pass_tiled`); elsewhere
-    :func:`sort_onesweep`, whose kernels tile by their own shape. Returns
-    ``(sorted_keys, sorted_values)``; the inputs are not modified."""
-    _check_input(enc, 0, tile)
-    if values is not None and values.shape != enc.shape:
-        raise ValueError("values must have the keys' shape")
-    enc = enc.contiguous()
-    values = None if values is None else values.contiguous()
-    if enc.shape[0] <= 1:
-        return enc.clone(), None if values is None else values.clone()
+def carries(enc: torch.Tensor, value: torch.Tensor) -> bool:
+    """Whether :func:`sort_radix_tiled` carries ``value``, a single payload,
+    through the passes (else it sorts positions and gathers)."""
+    return enc.element_size() + value.element_size() <= CARRY_MAX_BYTES
+
+
+def _sort_carrying(enc: torch.Tensor, values, tile: int):
+    """The keys sorted carrying one payload (or None): the tiled passes at
+    ``tile`` on a CPU tensor, :func:`sort_onesweep` elsewhere."""
     if enc.device.type != "cpu":
         return sort_onesweep(enc, values)
     for p in range(num_passes(enc.dtype)):
         enc, values = radix_pass_tiled(enc, values, p * BITS_PER_PASS, tile)
     return enc, values
+
+
+def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
+    """Full stable LSD sort of uint32/uint64 encoded keys: 4 passes for u32,
+    8 for u64. On a CPU tensor the tiled passes at ``tile``
+    (:func:`radix_pass_tiled`); elsewhere :func:`sort_onesweep`, whose
+    kernels tile by their own shape.
+
+    ``values``: None, one payload, or a tuple of payloads, each of 1, 2, 4
+    or 8 bytes an element and the keys' length. No payload, or one that with
+    the key spans at most :data:`CARRY_MAX_BYTES`, rides the passes; any
+    other set is moved after them: the keys are sorted carrying their u32
+    positions, and ``gather.gather_columns`` moves every payload through
+    the sorted positions (span ``vkrs/radix/gather``; on a CPU tensor the
+    plain indexing). Returns ``(sorted_keys, sorted_values)``, the values as
+    they were passed (None, a tensor or a tuple); the inputs are not
+    modified."""
+    _check_input(enc, 0, tile)
+    multi = isinstance(values, tuple)
+    vals = values if multi else (() if values is None else (values,))
+    for v in vals:
+        _check_move(enc, v)
+    enc = enc.contiguous()
+    vals = tuple(v.contiguous() for v in vals)
+    if enc.shape[0] <= 1:
+        out_k, out_vs = enc.clone(), tuple(v.clone() for v in vals)
+    elif len(vals) > 1 or (vals and not carries(enc, vals[0])):
+        out_k, perm = _sort_carrying(enc, positions(enc.shape[0], enc.device), tile)
+        with profiling.span("vkrs/radix/gather"):
+            out_vs = gather.gather_columns(perm, vals)
+    else:
+        out_k, out_v = _sort_carrying(enc, vals[0] if vals else None, tile)
+        out_vs = (out_v,) if vals else ()
+    if multi:
+        return out_k, out_vs
+    return out_k, out_vs[0] if out_vs else None
