@@ -7,8 +7,9 @@ splitters, bucket bounds and counts are integers computed the same way.
 Three cases are held against the JAX package's ``sort_sharded`` on the
 8-device CPU mesh of ``tests/conftest.py``: counts, overflow flags and each
 shard's valid prefix (JAX's padding content is arbitrary). The JAX calls
-run under ``jax.jit``, as the JAX package's dry run runs them (a few
-seconds each; unjitted, about 30 s), once, in a module-scoped fixture;
+run under the one ``jax.jit`` of ``tests/jax_dist.py``, as the JAX package's
+dry run runs them (a few seconds each; unjitted, about 30 s), once, in a
+module-scoped fixture;
 every other case is held against numpy's stable argsort. The merge engine's plain versions run where ``local_engine`` is
 "merge" (CPU tensors).
 """
@@ -21,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from vkradixsort_tpu.parallel import distributed as jdist
 from vkradixsort_tpu_torch.ops import merge
 from vkradixsort_tpu_torch.parallel import distributed as dist
 from vkradixsort_tpu_torch.parallel.distributed import (
@@ -31,6 +31,7 @@ from vkradixsort_tpu_torch.parallel.distributed import (
     sort_sharded,
 )
 from vkradixsort_tpu_torch.utils.fixtures import make_keys
+import jax_dist
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = 8
@@ -76,9 +77,8 @@ def jax_results():
         keys, vals = _inputs(name)
         extra = dict(gidx_dtype=jnp.int64) if kind == "u64" else {}
         jv = tuple(jnp.asarray(v) for v in vals)
-        step = jax.jit(lambda k, v, _kw={**kw, **extra}: jdist.sort_sharded(
-            k, mesh, values=v if len(v) > 1 else v[0], **_kw))
-        res = step(jnp.asarray(keys), jv)
+        res = jax_dist.sort_sharded(jnp.asarray(keys), mesh, values=jv if len(jv) > 1 else jv[0],
+                                    **kw, **extra)
         pv = res[3] if len(jv) > 1 else (res[3],)
         out[name] = (np.asarray(res[0]), np.asarray(res[1]), np.asarray(res[2]),
                      [np.asarray(v) for v in pv])

@@ -10,8 +10,8 @@ Three cases are held against the JAX package's ``sort_sharded`` on
 ``tests/conftest.py``, along one axis: counts, overflow flags and each
 shard's valid prefix, on every device of the mesh (JAX's padding content is
 arbitrary), and ``gather_sorted`` without a mesh against JAX's
-``gather_sorted`` on the same results. The JAX calls run under ``jax.jit``
-(a few seconds each; unjitted, 20-40 s), once, in a module-scoped fixture.
+``gather_sorted`` on the same results. The JAX calls run under the one ``jax.jit`` of
+``tests/jax_dist.py`` (a few seconds each; unjitted, 20-40 s), once, in a module-scoped fixture.
 Every other case is held against numpy's stable argsort. The process-group 2-D mesh is tested
 on gloo in ``tests/test_torch_mesh2d_group.py``.
 """
@@ -32,6 +32,7 @@ from vkradixsort_tpu_torch.parallel.distributed import (
     sort_sharded,
 )
 from vkradixsort_tpu_torch.utils.fixtures import make_keys
+import jax_dist
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 JAX_CASES = {
@@ -89,9 +90,8 @@ def jax_results():
         keys, vals = _inputs(name)
         extra = dict(gidx_dtype=jnp.int64) if kind == "u64" else {}
         jv = tuple(jnp.asarray(v) for v in vals)
-        step = jax.jit(lambda k, v, _m=mesh, _a=axis, _kw={**kw, **extra}: jdist.sort_sharded(
-            k, _m, values=v if len(v) > 1 else v[0], axis_name=_a, **_kw))
-        res = step(jnp.asarray(keys), jv)
+        res = jax_dist.sort_sharded(jnp.asarray(keys), mesh, values=jv if len(jv) > 1 else jv[0],
+                                    axis_name=axis, **kw, **extra)
         pv = res[3] if len(jv) > 1 else (res[3],)
         gathered = jdist.gather_sorted(res[0], res[1], res[3])
         out[name] = (mesh, [_per_device(x) for x in (res[0], res[1], res[2]) + tuple(pv)],
