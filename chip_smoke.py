@@ -106,10 +106,9 @@ package's bench checks its 1e8 sort.
      at 2^16 to 2^26 and 1e8, in turns in this one process, each beside the
      engine the table picks; then the dispatcher's other operations the same
      way through tiled, merge and radix_tiled: u32 argsort, ``stable=False``
-     u32 kv (beside the JAX package's packed sort, ``sort_packed_u32``), and
-     on u64 keys, full-width uniform and Zipf (BASELINE.json config 4), keys
-     alone, kv with one 4-byte payload (beside the former two-pass chain,
-     ``sort_flat_u64_chain``) and argsort; and (10c) the crossovers behind
+     u32 kv (beside the kv row, which it reads), and on u64 keys, full-width
+     uniform and Zipf (BASELINE.json config 4), keys alone, kv with one
+     4-byte payload and argsort; and (10c) the crossovers behind
      the kvw, kvw64 and kv2 rows (``wide_crossovers``: tiled against
      radix_tiled with the benchmark's five lineitem columns, three 4-byte
      columns, two, and one of 1, 2 or 8 bytes, on u32 and u64 keys, uniform
@@ -185,7 +184,8 @@ line. Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
 error against its plain version, its time, its plain version's time, the
 least time the card could take (``bound_ms``: the larger of the bytes moved
-over 3.35 TB/s and, for the bitonic network, its compares over 67 T/s) and,
+over the card's HBM peak in ``sortbench/peaks.json`` and, for the bitonic
+network, its compares over 67 T/s) and,
 where one PyTorch call computes the same function, that call's time, all
 summed over the launches of one main-path run (the tile-sort and merge-path
 entries also carry their launches in the distributed sort's C = 1 merge
@@ -208,9 +208,11 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -257,7 +259,7 @@ N_BITONIC_KV64 = 838_860  # and at five (u64 keys, u64 payload)
 N_ORACLE_SMALL = 10_000_000  # where numpy's stable argsort is timed beside the oracle
 ORACLE_WINDOWS, ORACLE_WIDTH = 16, 1024  # bench.py's window gate
 REPS = 5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+PEAKS = pathlib.Path(__file__).resolve().parent / "sortbench" / "peaks.json"
 PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (data sheet)
 # this script's names for the kernel wrappers' launch counters (launch.<wrapper>)
 LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "tile_histograms",
@@ -313,9 +315,20 @@ def time_batched_ms(fn, calls: int = 100, batches: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) / calls for s, e in pairs)
 
 
+@functools.cache
+def hbm_bytes_per_s() -> float:
+    """The card's device-memory peak, from the benchmark's table of peaks
+    (:data:`PEAKS`); a card not listed there fails the run."""
+    name = torch.cuda.get_device_name(0)
+    peak = json.loads(PEAKS.read_text()).get(name, {}).get("hbm_bytes_per_s")
+    if peak is None:
+        raise SystemExit(f"no hbm_bytes_per_s for {name!r} in {PEAKS}")
+    return peak
+
+
 def bound_ms(nbytes: float) -> float:
     """Least time the card takes to move ``nbytes`` of device memory."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / hbm_bytes_per_s() * 1e3
 
 
 def max_abs_err(got: list, want: list) -> int:
@@ -646,14 +659,6 @@ def compare_radix_kernels(dev, rng) -> dict:
 RADIX_CHUNKS = (2048, 4096, 8192, 16384)
 
 
-def scan_int64(hist: torch.Tensor) -> torch.Tensor:
-    """The former form of ``reference.exclusive_bin_offsets``, for its time
-    beside the int32 scan: widened to int64, scanned, narrowed back."""
-    flat = hist.t().reshape(-1).to(torch.int64)
-    scanned = torch.cumsum(flat, 0) - flat
-    return scanned.view(hist.shape[1], hist.shape[0]).t().to(torch.int32).contiguous()
-
-
 def profile_radix_sort(keys, values, backend, smi: str) -> None:
     """One 1e8 radix_tiled sort under ``torch.profiler``: the device kernels
     by name and count, and the host's aten calls. One digit histogram, then
@@ -801,7 +806,8 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     index as the histogram's library yardstick, a stable ``torch.sort`` of
     the pass's 8-bit digit (int16, built outside the timed window) and the
     gathers of keys and values as the rank-and-scatter pass's (bitwise its
-    output), and the former int64 scan; then the per-pass API's chunk
+    output), and the scan bitwise against the onesweep's look-back sums
+    (``radix_tiled.lookback_bases_plain``); then the per-pass API's chunk
     sweep. Returns (launches, stats)."""
     small = rng.integers(0, 1 << 32, size=N_SMALL, dtype=np.uint32)
     sk, sv = vt.sort_pairs(torch.from_numpy(small).to(dev),
@@ -841,20 +847,23 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
     one = onesweep_parts(dev, keys, values, "stable u32 kv", smi)
 
     # the per-pass API (the JAX package's twins, off the sort route) on the same keys
-    tile = vt.SortConfig().chunk
+    tile = histogram.TILE
     nt = cdiv(N_MAIN, tile)
     st = {k: 0.0 for k in ("histogram", "histogram_plain", "histogram_library", "scan",
-                           "scan_int64", "radix_scatter", "radix_scatter_plain",
-                           "radix_scatter_library", "radix_dest", "radix_dest_plain")}
+                           "radix_scatter", "radix_scatter_plain", "radix_scatter_library",
+                           "radix_dest", "radix_dest_plain")}
     err = {"histogram": 0, "radix_dest": 0}
+    offsets = histogram.digit_histograms(keys)  # a pass's digits are any pass input's
     cur_k, cur_v = keys, values
     for shift in range(0, 32, 8):
         hist = histogram.tile_histograms(cur_k, shift, tile)
         err["histogram"] = max(err["histogram"], max_abs_err(
             [hist], [histogram.tile_histograms_plain(cur_k, shift, tile)]))
         base = reference.exclusive_bin_offsets(hist)
-        if not torch.equal(base, scan_int64(hist)):
-            raise AssertionError("the int32 scan disagrees with the int64 scan")
+        if not torch.equal(base, radix_tiled.lookback_bases_plain(cur_k, shift, tile,
+                                                                  offsets[shift // 8])):
+            raise AssertionError(f"the scan at shift {shift} disagrees with the onesweep's "
+                                 "look-back sums")
         dest = radix_tiled.tile_destinations(cur_k, shift, tile, base)
         e_dest = max_abs_err([dest],
                              [radix_tiled.tile_destinations_plain(cur_k, shift, tile, base)])
@@ -884,7 +893,6 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
                       f"rank-and-scatter {pass_ms['radix_scatter']:.4f} ms (library: stable "
                       f"torch.sort of the int16 digit + 2 gathers "
                       f"{pass_ms['radix_scatter_library']:.4f} ms, bitwise equal) [{smi}]")
-        st["scan_int64"] += time_ms(lambda: scan_int64(hist))
         st["radix_dest"] += time_ms(lambda: radix_tiled.tile_destinations(cur_k, shift, tile, base))
         st["histogram_plain"] += time_ms(
             lambda: histogram.tile_histograms_plain(cur_k, shift, tile), reps=3)
@@ -907,8 +915,8 @@ def radix_main_path(dev, rng, smi: str) -> tuple:
         raise AssertionError(f"radix kernels disagree with their plain versions at 1e8: {err}")
     phase("time", f"n={N_MAIN} per-pass API chunk {tile}, 4 passes summed: histogram "
                   f"{st['histogram']:.3f} ms (plain {st['histogram_plain']:.3f}, bincount "
-                  f"{st['histogram_library']:.3f}); scan {st['scan']:.3f} ms (int64 form "
-                  f"{st['scan_int64']:.3f}); rank-and-scatter {st['radix_scatter']:.3f} ms (plain "
+                  f"{st['histogram_library']:.3f}); scan {st['scan']:.3f} ms (bitwise the "
+                  f"look-back sums); rank-and-scatter {st['radix_scatter']:.3f} ms (plain "
                   f"{st['radix_scatter_plain']:.3f}, stable torch.sort of the digit + gathers "
                   f"{st['radix_scatter_library']:.3f}); destination mode {st['radix_dest']:.3f} ms "
                   f"(plain {st['radix_dest_plain']:.3f}); replaced: destinations 3.397 + widening "
@@ -990,7 +998,7 @@ def bitonic_expected(n: int, nk: int, npayloads: int, dev) -> dict:
 def bitonic_bound_ms(n: int, nk: int, key_bytes: int, payload_bytes: int) -> tuple:
     """(bound ms, what bounds it) of one stable bitonic sort of n elements:
     the larger of the bytes (keys and payloads read once and written once)
-    over 3.35 TB/s and the compare-exchanges' int32 plane compares (npad / 2
+    over the HBM peak and the compare-exchanges' int32 plane compares (npad / 2
     per stage, (nk + 1) planes) over 67 T/s."""
     npad = bitonic._padded_size(n)
     stages = npad.bit_length() - 1
@@ -1464,34 +1472,6 @@ def random_u64(dev, n: int, seed: int) -> torch.Tensor:
                          generator=gen).view(torch.uint64)
 
 
-def sort_flat_u64_chain(enc: torch.Tensor, values: tuple = ()):
-    """The former u64 kv form of the library path, the JAX package's TPU
-    workaround, timed beside the one-sort form that replaced it
-    (``segsort.sort_flat_pairs``): two chained stable 32-bit-digit
-    ``torch.sort`` passes, low digit first, each carrying the other digit
-    and the payloads."""
-    bits = enc.view(torch.int64)
-    lo = bits.to(torch.int32).view(torch.uint32)
-    hi = (bits >> 32).to(torch.int32).view(torch.uint32)
-    lo_s, rest = segsort.sort_flat_pairs(lo, (hi,) + tuple(values))
-    hi_s, rest2 = segsort.sort_flat_pairs(rest[0], (lo_s,) + tuple(rest[1:]))
-    out = (hi_s.view(torch.int32).to(torch.int64) << 32) | (
-        rest2[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
-    return out.view(torch.uint64), tuple(rest2[1:])
-
-
-def sort_packed_u32(enc: torch.Tensor, value: torch.Tensor):
-    """The JAX package's unstable kv path for its library sort, timed beside
-    the stable carry the port runs instead: u32 key and 4-byte payload
-    packed one int64 a pair (the signed-order key above the payload's bits),
-    one ``torch.sort``, and unpacked. It lost at every size (PERF.md)."""
-    packed = (segsort.to_signed_order(enc).to(torch.int64) << 32) | (
-        bits_view(value).to(torch.int64) & 0xFFFFFFFF)
-    s, _ = torch.sort(packed)
-    out_k = segsort.from_signed_order((s >> 32).to(torch.int32), torch.uint32)
-    return out_k, s.to(torch.int32).view(value.dtype)
-
-
 def turns(fns: dict, keys: torch.Tensor, fresh: bool) -> dict:
     """Device ms of each ``fns[name](keys)``, in turns: in order, then in
     reverse, each a median of REPS calls. ``fresh``: each call sorts a new
@@ -1518,13 +1498,12 @@ def route_crossovers(dev, zipf: torch.Tensor, smi: str) -> dict:
     """The crossovers behind the ROUTE_TABLE rows of the dispatcher's other
     paths, at every size of CROSS_SIZES, in turns, in this one process:
     argsort of u32 keys, and stable=False u32 kv with one 4-byte payload
-    (tiled's stable carry beside the JAX package's packed sort); then on
-    u64 keys, full-width uniform and Zipf (the first n of ``zipf``,
-    BASELINE.json config 4), keys alone, stable kv with one 4-byte payload
-    (tiled's one int64 sort beside the former two-pass chain) and argsort.
-    Every op also runs through merge and radix_tiled. Prints each with the
-    engine that won every turn and the engine the table picks. Returns
-    {(op, dist, n): {engine: [ms...]}}."""
+    (beside the kv row, which it reads); then on u64 keys, full-width
+    uniform and Zipf (the first n of ``zipf``, BASELINE.json config 4),
+    keys alone, stable kv with one 4-byte payload and argsort. Each runs
+    through tiled, merge and radix_tiled. Prints each with the engine that
+    won every turn and the engine the table picks. Returns
+    {(case, dist, n): {engine: [ms...]}}."""
     out = {}
 
     def engines(call):
@@ -1534,20 +1513,20 @@ def route_crossovers(dev, zipf: torch.Tensor, smi: str) -> dict:
         v1 = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
         argsort = engines(lambda k, b: vt.argsort(k, backend=b))
         unstable = engines(lambda k, b: vt.sort_pairs(k, v1, backend=b, stable=False))
-        unstable["tiled packed"] = lambda k: sort_packed_u32(k, v1)
         u32 = random_u32(dev, n, SEED + 90)
-        cases = [("argsort", "uniform", u32, argsort), ("kv_unstable", "uniform", u32, unstable)]
+        cases = [("argsort", "uniform", u32, argsort),
+                 ("kv stable=False", "uniform", u32, unstable)]
         kv64 = engines(lambda k, b: vt.sort_pairs(k, v1, backend=b))
-        kv64["tiled two-pass chain"] = lambda k: sort_flat_u64_chain(k, (v1,))
         for dist, keys in (("uniform", random_u64(dev, n, SEED + 91)), ("zipf", zipf[:n])):
             cases += [("keys64", dist, keys, engines(lambda k, b: vt.sort(k, backend=b))),
                       ("kv64", dist, keys, kv64),
                       ("argsort64", dist, keys, argsort)]
-        for op, dist, keys, fns in cases:
+        for case, dist, keys, fns in cases:
             t = turns(fns, keys, fresh=dist == "uniform")
-            out[(op, dist, n)] = t
-            routed = route_for(op.removesuffix("64"), n, op.endswith("64"))
-            phase("time", f"crossover {op} {dist} n={n}: " + ", ".join(
+            out[(case, dist, n)] = t
+            row = case.split()[0]  # the ROUTE_TABLE row the case reads
+            routed = route_for(row.removesuffix("64"), n, row.endswith("64"))
+            phase("time", f"crossover {case} {dist} n={n}: " + ", ".join(
                 f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
                 + f" ms; won every turn: {won_every_turn(t)}; the table routes {routed} [{smi}]")
         del cases, keys, u32
@@ -2380,7 +2359,7 @@ def route_slices(dev, zipf: torch.Tensor, smi: str) -> dict:
         ("argsort, u64 zipf keys", "argsort", zipf, True,
          lambda b: vt.argsort(zipf, backend=b),
          lambda perm: check_kv(zipf, by_perm(zipf, perm), perm)),
-        ("stable=False kv, u32 uniform keys", "kv_unstable", u32, False,
+        ("stable=False kv, u32 uniform keys", "kv", u32, False,
          lambda b: vt.sort_pairs(u32, values, backend=b, stable=False),
          lambda out: check_kv(u32, *out, stable=False)),
     ]
@@ -2416,7 +2395,7 @@ def radix_passes_u64(dev, keys: torch.Tensor, what: str, smi: str) -> dict:
     keys in the pass's most common digit; then the onesweep sort of the
     same keys by kernel (``onesweep_parts``). Returns the per-pass ms, the
     bounds, the errors and the onesweep's parts."""
-    tile = vt.SortConfig().chunk
+    tile = histogram.TILE
     n = keys.numel()
     table = 4 * NUM_BINS * cdiv(n, tile)
     st = {"histogram": [], "radix_dest": [], "histogram_bound": bound_ms(8 * n + table),
@@ -2678,7 +2657,7 @@ def main() -> None:
     twin = bench_twin(dev, rst["sort_ms"], smi)
 
     one = rst["onesweep"]
-    nt = cdiv(N_MAIN, vt.SortConfig().chunk)
+    nt = cdiv(N_MAIN, histogram.TILE)
     hist_bytes = 4 * (4 * N_MAIN + 4 * NUM_BINS * nt)  # keys in, table out; 4 passes
     # keys and values read and written, the base table read; 4 passes
     move_bytes = 4 * (16 * N_MAIN + 4 * NUM_BINS * nt)

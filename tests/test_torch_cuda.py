@@ -335,11 +335,12 @@ def test_default_route_sends_wide_payload_sets_to_tiled(dev, monkeypatch):
 def test_default_route_follows_the_table(dev, op, n, engine):
     # each row of ROUTE_TABLE leads to its engine's kernels; a wide payload
     # set (three payloads, one of 8 bytes, on u32 keys; two 4-byte ones on
-    # u64 keys) reads kvw and gathers its payloads on radix_tiled
+    # u64 keys) reads kvw and gathers its payloads on radix_tiled;
+    # "kv_unstable" is kv with stable=False, which reads the kv rows
     from vkradixsort_tpu_torch.engine.config import route_for
 
     wide, base = op.endswith("64"), op.removesuffix("64")
-    assert route_for(base, n, wide) == engine
+    assert route_for(base.removesuffix("_unstable"), n, wide) == engine
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 1 << 20, size=n, dtype=np.uint64 if wide else np.uint32)
     vals = [np.arange(n, dtype=np.uint32), rng.standard_normal(n).astype(np.float32),
@@ -347,6 +348,7 @@ def test_default_route_follows_the_table(dev, op, n, engine):
     vals = vals[:{"keys": 0, "argsort": 0, "kv": 1, "kv_unstable": 1, "kv2": 2,
                   "kvw": 2 if wide else 3}[base]]
     before = (launches("tilesort"), launches("onesweep_pass"))
+    routes = profiling.counters()
     tk = torch.from_numpy(keys).to(dev)
     perm = np.argsort(keys, kind="stable")
     if base == "argsort":
@@ -360,6 +362,8 @@ def test_default_route_follows_the_table(dev, op, n, engine):
         ok, ov = vt.sort(tk), []
     ran = (launches("tilesort") > before[0], launches("onesweep_pass") > before[1])
     assert ran == (engine == "merge", engine == "radix_tiled")
+    assert {k: v for k, v in profiling.since(routes).items()
+            if k.startswith("route.")} == {"route." + engine: 1}
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[perm])
     for o, v in zip(ov, vals):
         np.testing.assert_array_equal(common.bits_view(o).cpu().numpy(),
@@ -508,21 +512,21 @@ def test_scatter_kernel_matches_plain(dev, dtype, kind, n, tile, payload):
         _equal([common.bits_view(vals)], [common.bits_view(vals_in)])
 
 
-@pytest.mark.parametrize("chunk", [2048, 4096, 8192, 16384, 3000])
+@pytest.mark.parametrize("n", [3 * c + 1234 for c in (2048, 4096, 8192, 16384, 3000)])
 @pytest.mark.parametrize("key_dtype,payload", [(np.uint32, np.uint32), (np.uint64, np.int16),
                                                (np.float32, None)])
-def test_radix_tiled_chunks_match_cpu(dev, chunk, key_dtype, payload):
-    rng = np.random.default_rng(chunk)
-    n = 3 * chunk + 1234
+def test_radix_tiled_chunks_match_cpu(dev, n, key_dtype, payload):
+    # the card's radix_tiled sort against the CPU's, the same onesweep steps
+    # through their plain versions, on ragged sizes
+    rng = np.random.default_rng(n)
     keys = torch.from_numpy((rng.integers(0, 1 << 20, size=n) - (1 << 19)).astype(key_dtype))
-    cfg = vt.SortConfig(chunk=chunk)
     if payload is None:
-        got = vt.sort(keys.to(dev), backend="radix_tiled", config=cfg)
-        want = vt.sort(keys, backend="radix_tiled", config=cfg)
+        got = vt.sort(keys.to(dev), backend="radix_tiled")
+        want = vt.sort(keys, backend="radix_tiled")
         _equal([common.bits_view(got).cpu()], [common.bits_view(want)])
         return
     vals = _payload(rng, n, payload)
-    gk, gv = vt.sort_pairs(keys.to(dev), vals.to(dev), backend="radix_tiled", config=cfg)
+    gk, gv = vt.sort_pairs(keys.to(dev), vals.to(dev), backend="radix_tiled")
     ck, cv = vt.sort_pairs(keys, vals, backend="tiled")
     _equal([common.bits_view(gk).cpu(), common.bits_view(gv).cpu()],
            [common.bits_view(ck), common.bits_view(cv)])

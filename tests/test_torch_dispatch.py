@@ -128,7 +128,7 @@ def test_default_route_decides_from_the_tensor():
     ("kv", (), False, "keys"), ("kv", (4,), False, "kv"), ("kv", (1,), False, "kv"),
     ("kv", (8,), True, "kv"), ("kv", (4, 4), False, "kv2"), ("kv", (4, 4), True, "kvw"),
     ("kv", (2, 4), False, "kvw"), ("kv", (4, 4, 4), False, "kvw"),
-    ("kv_unstable", (1,), False, "kv_unstable"), ("kv_unstable", (4, 4), False, "kvw"),
+    ("kv", (2,), True, "kv"), ("kv", (8, 4), True, "kvw"),
     ("argsort", (), True, "argsort"),
 ])
 def test_payload_set_reads_its_route_row(op, widths, wide, row):

@@ -306,7 +306,7 @@ def jax_sort_u32():
 
 def test_sort_radix_tiled_matches_jax(jax_sort_u32):
     keys, vals, jk, jv = jax_sort_u32
-    ok, ov = radix_tiled.sort_radix_tiled(_t(keys), _t(vals), TILE)
+    ok, ov = radix_tiled.sort_radix_tiled(_t(keys), _t(vals))
     _eq(ok, jk)
     _eq(ov, jv)
 
@@ -490,19 +490,18 @@ def jax_radix_tiled_slice():
 @pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
 def test_slice_matches_jax_radix_tiled(jax_radix_tiled_slice, backend):
     # fused and reference give the same stable answer as JAX's radix_tiled
-    cfg = vt.SortConfig(chunk=TILE)
     res = jax_radix_tiled_slice
     for desc in (False, True):
         (k, v), (jk, jv) = res[("kv32", desc)]
-        ok, ov = vt.sort_pairs(_t(k), _t(v), config=cfg, backend=backend, descending=desc)
+        ok, ov = vt.sort_pairs(_t(k), _t(v), backend=backend, descending=desc)
         _eq(ok, jk)
         _eq(ov, jv)
     f32, jperm = res["argsort_f32"]
-    perm = vt.argsort(_t(f32), config=cfg, backend=backend)
+    perm = vt.argsort(_t(f32), backend=backend)
     assert perm.dtype == torch.uint32
     _eq(perm, jperm)
     i32, jsorted = res["sort_i32"]
-    _eq(vt.sort(_t(i32), config=cfg, backend=backend, descending=True), jsorted)
+    _eq(vt.sort(_t(i32), backend=backend, descending=True), jsorted)
 
 
 @pytest.mark.parametrize("backend", ["radix_tiled", "fused", "reference"])
@@ -514,8 +513,7 @@ def test_slice_matches_jax_reference(backend, key_dtype, val_dtype):
     keys = (rng.standard_normal(n) * 30).round().astype(key_dtype)
     vals = rng.integers(-(2**31), 2**31, size=n).astype(val_dtype)
     for desc in (False, True):
-        ok, ov = vt.sort_pairs(_t(keys), _t(vals), config=vt.SortConfig(chunk=512),
-                               backend=backend, descending=desc)
+        ok, ov = vt.sort_pairs(_t(keys), _t(vals), backend=backend, descending=desc)
         jk, jv = vk.sort_pairs(jnp.asarray(keys), jnp.asarray(vals), backend="reference",
                                descending=desc)
         _eq(ok, jk)
@@ -565,9 +563,9 @@ def test_one_payload_engines_refuse_two(backend):
 def test_fused_refuses_more_than_fused_max_n():
     cfg = vt.SortConfig()
     assert cfg.fused_max_n == JaxSortConfig().fused_max_n == 1 << 15
-    # the radix_tiled chunk: JAX's 2048, the port's 16384 from the H100 sweep
-    # (PERF.md); the sorted result does not depend on it
-    assert (JaxSortConfig().chunk, cfg.chunk) == (TILE, 16384)
+    # the per-pass API's tile: JAX's chunk 2048, the port's 16384 from the
+    # H100 sweep (PERF.md); the sorted result does not depend on it
+    assert (JaxSortConfig().chunk, histogram.TILE) == (TILE, 16384)
     with pytest.raises(ValueError, match="fused_max_n"):
         vt.sort(torch.zeros(cfg.fused_max_n + 1, dtype=torch.int32), backend="fused")
     with pytest.raises(ValueError, match="fused_max_n"):

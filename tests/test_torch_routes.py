@@ -1,7 +1,8 @@
 """The dispatcher's own paths in the PyTorch port, on CPU tensors, held
 against the JAX package's public API on the same numpy inputs: argsort
 (``tiled.argsort_tiled`` and every engine's keys-plus-positions sort),
-``sort_pairs(stable=False)`` (every engine's stable pipeline), stable kv
+``sort_pairs(stable=False)`` (every engine's stable pipeline, on the
+route of the stable call), stable kv
 with 64-bit keys (one int64 ``torch.sort``), and the shape of
 ``engine/config.ROUTE_TABLE``.
 
@@ -19,10 +20,11 @@ import vkradixsort_tpu as vk
 import vkradixsort_tpu_torch as vt
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from vkradixsort_tpu_torch.engine.config import ROUTE_TABLE
+from vkradixsort_tpu_torch.utils import profiling
 from vkradixsort_tpu_torch.utils.fixtures import make_keys
 
 N = 3 * 4096 + 555
-CFG = vt.SortConfig(tile=4096, chunk=4096)  # several merge levels and radix tiles
+CFG = vt.SortConfig(tile=4096)  # several merge levels
 ARGSORT_DTYPES = [np.uint32, np.uint64, np.int32, np.float32, np.float16]
 BACKENDS = [None, "tiled", "merge", "radix_tiled", "reference"]
 
@@ -143,6 +145,30 @@ def test_unstable_u64_kv_keeps_keys_and_pairs(backend, npayloads):
     assert _multiset(ok.numpy(), [o.numpy() for o in ov]) == _multiset(keys, vals)
 
 
+@pytest.mark.parametrize("backend", [None, "radix_tiled"])
+@pytest.mark.parametrize("payloads", [(np.int8,), (np.float32,), (np.uint64,),
+                                      (np.int32, np.int16)],
+                         ids=["i8", "f32", "u64", "i32-i16"])
+def test_unstable_kv_is_the_stable_call(backend, payloads):
+    # stable=False reads the stable call's ROUTE_TABLE row and runs its
+    # pipeline: the same route counted, and bitwise the stable answer
+    rng = np.random.default_rng(8)
+    keys = torch.from_numpy(_keys(np.uint32))
+    vals = [torch.from_numpy(rng.integers(0, 256, size=N * np.dtype(d).itemsize,
+                                          dtype=np.uint8).view(d)) for d in payloads]
+    out, routes = {}, {}
+    for stable in (True, False):
+        before = profiling.counters()
+        out[stable] = vt.sort_pairs(keys, vals, backend=backend, stable=stable)
+        routes[stable] = {k: v for k, v in profiling.since(before).items()
+                          if k.startswith("route.")}
+    assert routes[False] == routes[True] == {"route." + (backend or "tiled"): 1}
+    (sk, sv), (uk, uv) = out[True], out[False]
+    _eq(uk, sk.numpy())
+    for u, s in zip(uv, sv, strict=True):
+        _eq(u, s.numpy())
+
+
 @pytest.mark.parametrize("descending", [False, True])
 @pytest.mark.parametrize("distribution", ["zipf", "uniform"])
 def test_u64_kv_on_tiled_matches_jax(distribution, descending):
@@ -170,7 +196,6 @@ ACCEPTS = {
     "kv2": {"tiled", "merge", "radix_tiled"},
     "kvw": {"tiled", "radix_tiled"},
     "argsort": {"tiled", "merge", "radix_tiled"},
-    "kv_unstable": {"tiled", "merge", "radix_tiled"},
     "dist_local": {"tiled", "merge"},
 }
 

@@ -28,7 +28,6 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OPS = pathlib.Path(__file__).resolve().parents[1] / "vkradixsort_tpu_torch" / "ops"
 N = 1000
-SMALL = vt.SortConfig(chunk=256)  # the plain radix pass's cost grows with the tile
 WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "digit_histograms",
             "onesweep_pass", "tilesort", "mergepath_level", "sort_fused", "block_pass",
             "global_group", "gather_payload", "place_runs", "gather_columns")
@@ -67,9 +66,9 @@ CALLS = {
     "sort_2d": lambda: vt.sort(_keys().view(10, 100)),
     "sort_pairs_tiled": lambda: vt.sort_pairs(_keys(), (torch.arange(N), torch.arange(N))),
     "sort_pairs_radix": lambda: vt.sort_pairs(_keys(), torch.arange(N, dtype=torch.int32),
-                                              backend="radix_tiled", config=SMALL),
+                                              backend="radix_tiled"),
     "argsort_tiled": lambda: vt.argsort(_keys(torch.uint64)),
-    "argsort_radix": lambda: vt.argsort(_keys(), backend="radix_tiled", config=SMALL),
+    "argsort_radix": lambda: vt.argsort(_keys(), backend="radix_tiled"),
     "sort_segments": lambda: vt.sort_segments(_keys().view(10, 100), torch.arange(N).view(10, 100)),
     "sort_sharded": lambda: sort_sharded(_keys(n=4 * 256), LocalMesh(["cpu"] * 4)),
 }
@@ -103,19 +102,19 @@ def test_span_is_a_shared_no_op_off_and_a_range_on():
 
 @pytest.mark.parametrize("dtype,passes", [(torch.uint32, 4), (torch.uint64, 8)])
 def test_radix_steps_nest_in_the_engine_and_the_call(dtype, passes):
+    # the dispatcher's radix_tiled sort is the card's onesweep sort on every
+    # device: one histogram step a call, one scatter step a pass, no scan
     spans = _spans(CALLS["sort_pairs_radix"] if dtype == torch.uint32 else
                    lambda: vt.sort_pairs(_keys(dtype), torch.arange(N, dtype=torch.int32),
-                                         backend="radix_tiled", config=SMALL))
+                                         backend="radix_tiled"))
     names = collections.Counter(s[0] for s in spans)
     assert names == {"vkrs/sort_pairs": 1, "vkrs/engine/radix_tiled": 1,
-                     "vkrs/radix/histogram": passes, "vkrs/radix/scan": passes,
-                     "vkrs/radix/scatter": passes}
+                     "vkrs/radix/histogram": 1, "vkrs/radix/scatter": passes}
     call, engine = spans[0], spans[1]
     assert (call[0], engine[0]) == ("vkrs/sort_pairs", "vkrs/engine/radix_tiled")
     assert _inside(engine, call)
     steps = spans[2:]
-    assert [s[0] for s in steps] == ["vkrs/radix/histogram", "vkrs/radix/scan",
-                                     "vkrs/radix/scatter"] * passes
+    assert [s[0] for s in steps] == ["vkrs/radix/histogram"] + ["vkrs/radix/scatter"] * passes
     assert all(_inside(s, engine) for s in steps)
 
 
@@ -130,8 +129,8 @@ def test_onesweep_sort_counts_once_and_moves_a_pass(dtype, passes):
 
 @pytest.mark.parametrize("payloads", [2, 5])
 def test_radix_tiled_payload_set_gathers_once(payloads):
-    # a payload set rides as positions through the passes (here the CPU's
-    # tiled passes), then one gather step moves every column
+    # a payload set rides as positions through the onesweep passes, then
+    # one gather step moves every column
     vals = tuple(torch.arange(N, dtype=torch.int64) + i for i in range(payloads))
     spans = _spans(lambda: vt.sort_pairs(_keys(), vals, backend="radix_tiled"))
     names = [s[0] for s in spans]

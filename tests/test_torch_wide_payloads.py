@@ -121,16 +121,16 @@ def test_lineitem_set_is_the_jax_tiled_sort(key_dtype):
 def test_radix_tiled_keeps_the_container(payload):
     keys = _keys(torch.uint32, "ties")
     col = _column(payload, 0)
-    ok, ov = radix_tiled.sort_radix_tiled(keys, col, tile=1024)
+    ok, ov = radix_tiled.sort_radix_tiled(keys, col)
     ref_k, (ref_v,) = reference.sort_pairs(keys, (col,))
     _same(ok, ref_k)
     _same(ov, ref_v)
-    ok, ov = radix_tiled.sort_radix_tiled(keys, (col, col), tile=1024)
+    ok, ov = radix_tiled.sort_radix_tiled(keys, (col, col))
     assert isinstance(ov, tuple) and len(ov) == 2
     _same(ov[0], ref_v)
     _same(ov[1], ref_v)
-    assert radix_tiled.sort_radix_tiled(keys, None, tile=1024)[1] is None
-    assert radix_tiled.sort_radix_tiled(keys, (), tile=1024)[1] == ()
+    assert radix_tiled.sort_radix_tiled(keys, None)[1] is None
+    assert radix_tiled.sort_radix_tiled(keys, ())[1] == ()
 
 
 def test_gather_columns_refuses_what_the_kernel_does_not_take():

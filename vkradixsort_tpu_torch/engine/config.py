@@ -18,18 +18,9 @@ class SortConfig:
       fused_max_n: largest N the fused one-launch radix kernel accepts when
         it is selected (``backend="fused"``), the analog of the reference's
         single-workgroup regime (VkRadixSort recommends it below about 10k
-        keys); above this dispatch raises. One cluster of blocks holds the
+        keys); above this the engine raises. One cluster of blocks holds the
         whole array on chip, so on the card the kernel itself takes at most
         ``ops/fused.MAX_N`` (32768, the default).
-      chunk: elements per tile of the radix_tiled per-pass API
-        (``tile_histograms``, ``tile_scatter``, ``radix_pass_tiled``) and of
-        the radix_tiled sort of a CPU tensor: each histogram row and each
-        block of the rank-and-scatter kernel covers ``chunk`` consecutive
-        keys. 16384, the fastest of the H100 sweep of a 1e8 stable u32 kv
-        sort through those passes over 2048 to 16384 (PERF.md; the JAX
-        package takes 2048). The card's radix_tiled sort (onesweep) does
-        not read it: its kernels' tiles follow the key and payload widths.
-        The sorted result does not depend on it.
       tile: grain size in elements per tile. The merge engine's tile-sort
         kernel sorts tiles of ``tile`` elements, floored to a power of two
         and capped at ``ops/merge.default_tile`` as the JAX package floors
@@ -42,7 +33,6 @@ class SortConfig:
     """
 
     fused_max_n: int = 1 << 15
-    chunk: int = 16384
     tile: int | None = None
 
     def replace(self, **kw) -> "SortConfig":
@@ -55,11 +45,13 @@ DEFAULT_CONFIG = SortConfig()
 # Default route of ``backend=None`` for CUDA tensors, per operation and size:
 # rows are (max_n, engine), scanned in order; the first row with n <= max_n
 # wins, and an operation without rows routes to "tiled". The operations:
-# stable sorts of 32-bit encoded keys, "keys" alone, "kv" with one payload
-# of 1, 2, 4 or 8 bytes, "kv2" with two 4-byte ones; "kvw" with any other
-# set of two or more (``stable=False`` too); "argsort"; "kv_unstable"
-# (``stable=False``, one payload); each with its "64" twin for 64-bit keys,
-# where two 4-byte payloads read "kvw64" (ops/dispatch._table_op).
+# sorts of 32-bit encoded keys, "keys" alone, "kv" with one payload of 1, 2,
+# 4 or 8 bytes, "kv2" with two 4-byte ones; "kvw" with any other set of two
+# or more; "argsort"; each with its "64" twin for 64-bit keys, where two
+# 4-byte payloads read "kvw64" (ops/dispatch._table_op). ``stable=False``
+# reads the same rows: every engine runs its stable pipeline (timed on its
+# own, u32 kv gave kv's crossover: radix_tiled won every size from 2^24,
+# 1e8 4.71 against 9.13 ms).
 #
 # Every row is an H100 measurement (chip_smoke.py phases 10 and 11, PERF.md
 # section 5, 700 W): at 2^16, 2^18, ..., 2^26 and 1e8, each engine in turns.
@@ -118,11 +110,6 @@ DEFAULT_CONFIG = SortConfig()
 #     won eight runs of nine (Zipf 1.83-1.86 against 2.08-2.09 ms) and lost
 #     the one whose small calls were all slower (2.23-2.26 against 2.08):
 #     its 56 launches wait on the host there. Merge lost every size.
-#   - kv_unstable: every engine runs its stable pipeline, so these are kv's
-#     rows, measured again (radix_tiled won 2^22 in one run of two, 0.368
-#     against 0.378 ms, and every size from 2^24: 1e8 4.71 against 9.13).
-#     kv_unstable64 is kv64's: 64-bit keys have no packed path, so unstable
-#     is the stable carry there too.
 #   - argsort (u32): torch.sort's own permutation up to 2^24 (1.054-1.061
 #     against radix_tiled's 1.118-1.128 ms); radix_tiled, which sorts the
 #     keys with their positions, from 2^26 (3.849-3.877 against 4.078-4.096;
@@ -152,7 +139,6 @@ ROUTE_TABLE: dict = {
     "kv": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "keys64": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
     "kv64": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
-    "kv_unstable": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "argsort": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
     "kv2": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "kvw": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
@@ -160,8 +146,6 @@ ROUTE_TABLE: dict = {
     "dist_local": [((1 << 22) - 1, "tiled"), (float("inf"), "merge")],
     "dist_local64": [(1 << 23, "tiled"), (1 << 25, "merge"), (float("inf"), "tiled")],
 }
-# 64-bit keys have no packed path, so unstable kv is the stable carry there
-ROUTE_TABLE["kv_unstable64"] = ROUTE_TABLE["kv64"]
 
 
 def route_for(op: str, n: int, wide: bool = False) -> str:

@@ -51,14 +51,14 @@ from typing import NamedTuple
 
 import torch
 
-from vkradixsort_tpu_torch.ops import kernels, merge
+from vkradixsort_tpu_torch.ops import kernels, merge, segsort
 from vkradixsort_tpu_torch.ops.common import _MIN32, bits_view
 from vkradixsort_tpu_torch.utils import profiling
 
 LANES = 128
 MIN_PADDED = LANES * 8  # the JAX kernel's smallest (8, 128) block
 
-# Size contract of the engine (dispatch raises above it), the JAX formula
+# Size contract of the engine (sort_encoded raises above it), the JAX formula
 # ``budget // (16 * nplanes)`` with the budget fixed: on a CUDA tensor the
 # 64 MiB of VMEM of the TPU v5e that set the JAX engine's envelope (here the
 # stages past one tile run from device memory, so it is a contract, not a
@@ -483,6 +483,25 @@ def bitonic_sort_block(keys: torch.Tensor, values: tuple = (), stable: bool = Fa
     work, out_v = network(key_planes, [bits_view(v).contiguous() for v in values])
     out_k = _join_planes([work[i, :n] for i in range(len(key_planes))], keys.dtype)
     return out_k, tuple(o.view(v.dtype) for o, v in zip(out_v, values))
+
+
+def sort_encoded(enc: torch.Tensor, vals: tuple, config=None):
+    """``backend="bitonic"``: encoded keys, in signed order, and 4- and
+    8-byte payloads through :func:`bitonic_sort_block`, under the size
+    contract; ``(sorted_keys, sorted_vals_tuple)``."""
+    # the contract counts resident int32 planes: key planes (two for 64-bit
+    # keys), one per 4 payload bytes, and the position plane payloads imply
+    kp = 2 if enc.dtype == torch.uint64 else 1
+    nplanes = kp + sum(v.element_size() // 4 for v in vals) + (1 if vals else 0)
+    limit = max_n(enc.device, nplanes)
+    if enc.shape[0] > limit:
+        raise ValueError(
+            "bitonic engine holds the whole (padded) array in one network; at "
+            f"{nplanes} resident plane(s) this device is bound to ~{limit:,} keys; "
+            "use the 'tiled' or 'merge' engines for larger arrays"
+        )
+    out_s, out_v = bitonic_sort_block(segsort.to_signed_order(enc), vals, stable=bool(vals))
+    return segsort.from_signed_order(out_s, enc.dtype), tuple(out_v)
 
 
 def network(key_planes: list, values: list, tile: int | None = None):

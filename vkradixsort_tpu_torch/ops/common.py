@@ -139,6 +139,16 @@ def positions(n: int, device) -> torch.Tensor:
     return idx.view(torch.uint64)
 
 
+def only_one_payload(engine: str, vals: tuple) -> None:
+    """Raise for a set of two or more payloads on an engine that moves one."""
+    if len(vals) > 1:
+        raise NotImplementedError(
+            f"engine {engine!r} moves a single payload plane; pass one values "
+            "tensor, or use the 'tiled'/'merge'/'radix_tiled'/'bitonic'/'reference' "
+            "engines for multi-payload sorts"
+        )
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

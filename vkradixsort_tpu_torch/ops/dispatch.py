@@ -7,13 +7,13 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
   "tiled"        ``torch.sort(stable=True)`` in sign-flipped int space
                  (ops/tiled.py); every device, every dtype
   "merge"        tile-sort + merge-path ladder (ops/merge.py)
-  "radix_tiled"  LSD radix passes (ops/radix_tiled.py): on CUDA tensors
-                 one histogram of every pass's digits, then per pass one
-                 kernel that ranks, looks back for its tiles' bases and
-                 moves keys and payload; any set of 1-, 2-, 4- and 8-byte
-                 payloads (one rides the passes; a wider set rides as u32
-                 positions, then one gather kernel moves every column,
-                 ops/gather.py), n < 2^31
+  "radix_tiled"  LSD radix passes (ops/radix_tiled.py): one histogram of
+                 every pass's digits, then per pass one kernel that ranks,
+                 looks back for its tiles' bases and moves keys and
+                 payload; any set of 1-, 2-, 4- and 8-byte payloads (one
+                 rides the passes; a wider set rides as u32 positions, then
+                 one gather kernel moves every column, ops/gather.py),
+                 n < 2^31
   "fused"        the whole LSD radix sort in one launch of one block
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
                  one payload of 4 or 8 bytes
@@ -25,7 +25,9 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
 
 The merge, radix_tiled, fused, bitonic and samplesort engines launch
 hand-written CUDA kernels on CUDA tensors and run their plain versions on
-CPU tensors. ``backend=None`` decides from the tensor, up front: CUDA
+CPU tensors. Each engine's entry (:data:`SORTS`) holds its own rules: what
+payloads it moves, its size contract, its key order. ``backend=None``
+decides from the tensor, up front: CUDA
 tensors follow ``engine/config.ROUTE_TABLE`` (tiled or radix_tiled, by
 operation, payload set, key width and size, as measured on the H100); CPU
 tensors take "tiled". No default route leads to merge, fused, reference,
@@ -59,34 +61,42 @@ from vkradixsort_tpu_torch.ops.common import (
     encode_keys,
     positions,
     sortable_dtype,
-    take,
 )
 from vkradixsort_tpu_torch.utils import profiling
 
-ENGINES = ("tiled", "merge", "radix_tiled", "fused", "reference", "bitonic", "samplesort")
+# Each engine's sort of encoded keys and a payload set, ``(enc, vals, config)
+# -> (sorted_keys, sorted_vals_tuple)``; each raises on what it refuses.
+SORTS = {
+    "tiled": lambda enc, vals, config: tiled.sort_tiled(enc, vals),
+    "merge": lambda enc, vals, config: merge.sort_merge(enc, vals, tile=config.tile),
+    "radix_tiled": lambda enc, vals, config: radix_tiled.sort_radix_tiled(enc, vals),
+    "fused": fused.sort_encoded,
+    "reference": reference.sort_encoded,
+    "bitonic": bitonic.sort_encoded,
+    "samplesort": samplesort.sort_encoded,
+}
+ENGINES = tuple(SORTS)
 
 
 def _table_op(op: str, vals: tuple, wide: bool) -> str:
     """The ``ROUTE_TABLE`` operation, without its "64", of a call ``op``
-    ("kv", "kv_unstable" or "argsort") with payloads ``vals`` on 32-bit
-    keys, or on 64-bit keys if ``wide``: "kv" with no payload reads "keys";
-    one payload of any width keeps "kv" or "kv_unstable"; two 4-byte
-    payloads of a stable sort on 32-bit keys read "kv2"; every other set of
-    two or more reads "kvw" (``stable=False`` too: the stable carry)."""
+    ("kv" or "argsort") with payloads ``vals`` on 32-bit keys, or on 64-bit
+    keys if ``wide``: "kv" with no payload reads "keys"; one payload of any
+    width keeps "kv"; two 4-byte payloads on 32-bit keys read "kv2"; every
+    other set of two or more reads "kvw"."""
     if len(vals) > 1:
         four = all(v.element_size() == 4 for v in vals)
-        return "kv2" if op == "kv" and not wide and len(vals) == 2 and four else "kvw"
+        return "kv2" if not wide and len(vals) == 2 and four else "kvw"
     return "keys" if op == "kv" and not vals else op
 
 
 def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = "kv") -> str:
     """The engine of a call: ``backend`` when given; else "tiled" for CPU
     tensors, and for CUDA tensors the ``ROUTE_TABLE`` row of the call's
-    payload set (:func:`_table_op`: "keys", "kv", "kv2", "kvw", "argsort",
-    "kv_unstable"; each with its "64" twin for u64-encoded keys) at the
-    call's size. A row never sends a call to an engine that refuses it
-    (JAX's rule): radix_tiled takes payloads of 1, 2, 4 or 8 bytes and
-    n < 2^31."""
+    payload set (:func:`_table_op`: "keys", "kv", "kv2", "kvw", "argsort";
+    each with its "64" twin for u64-encoded keys) at the call's size. A row
+    never sends a call to an engine that refuses it (JAX's rule): what
+    radix_tiled refuses (``radix_tiled.accepts``) goes to "tiled"."""
     if backend is not None:
         if backend not in ENGINES:
             raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
@@ -96,66 +106,9 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = 
     wide = sortable_dtype(keys.dtype) == torch.uint64
     n = keys.shape[0]
     path = route_for(_table_op(op, vals, wide), n, wide)
-    if path == "radix_tiled" and (n >= 1 << 31 or any(
-            v.element_size() not in radix_tiled.PAYLOAD_BYTES for v in vals)):
+    if path == "radix_tiled" and not radix_tiled.accepts(n, vals):
         return "tiled"
     return path
-
-
-def _sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig, path: str):
-    """Sort encoded keys (and payloads) on ``path``; returns
-    ``(sorted_keys, sorted_vals_tuple)``."""
-    if path == "tiled":
-        return tiled.sort_tiled(enc, vals)
-    if path == "merge":
-        return merge.sort_merge(enc, vals, tile=config.tile)
-    if path == "radix_tiled":
-        return radix_tiled.sort_radix_tiled(enc, vals, tile=config.chunk)
-    if path == "fused":
-        _only_one_payload(path, vals)
-        out_k, out_v = fused.sort_fused(enc, vals[0] if vals else None, config)
-        return out_k, (out_v,) if vals else ()
-    if path == "reference":
-        if len(vals) <= 1:
-            out_k, out_v = reference._sort_encoded(enc, vals[0] if vals else None)
-            return out_k, (out_v,) if vals else ()
-        # several payloads: one sort carrying the positions, then a gather
-        out_k, perm = reference._sort_encoded(enc, torch.arange(enc.shape[0], device=enc.device))
-        return out_k, tuple(take(v, perm) for v in vals)
-    if path == "bitonic":
-        # the size contract counts resident int32 planes: key planes (two
-        # for 64-bit keys), one per 4 payload bytes, and the position plane
-        # that payloads imply (ops/bitonic.max_n)
-        kp = 2 if enc.dtype == torch.uint64 else 1
-        nplanes = kp + sum(v.element_size() // 4 for v in vals) + (1 if vals else 0)
-        max_n = bitonic.max_n(enc.device, nplanes)
-        if enc.shape[0] > max_n:
-            raise ValueError(
-                "bitonic engine holds the whole (padded) array in one network; at "
-                f"{nplanes} resident plane(s) this device is bound to ~{max_n:,} keys; "
-                "use the 'tiled' or 'merge' engines for larger arrays"
-            )
-        out_s, out_v = bitonic.bitonic_sort_block(segsort.to_signed_order(enc), vals,
-                                                  stable=bool(vals))
-        return segsort.from_signed_order(out_s, enc.dtype), tuple(out_v)
-    if path == "samplesort":
-        _only_one_payload(path, vals)
-        grain = {} if config.tile is None else dict(tile_target=config.tile,
-                                                    bucket_target=config.tile)
-        if not vals:
-            return samplesort.sort_samplesort(enc, **grain), ()
-        out_k, out_v = samplesort.sort_pairs_samplesort(enc, vals[0], **grain)
-        return out_k, (out_v,)
-    raise ValueError(f"unknown sort path {path!r}")
-
-
-def _only_one_payload(path: str, vals: tuple) -> None:
-    if len(vals) > 1:
-        raise NotImplementedError(
-            f"engine {path!r} moves a single payload plane; pass one values "
-            "tensor, or use the 'tiled'/'merge'/'radix_tiled'/'bitonic'/'reference' "
-            "engines for multi-payload sorts"
-        )
 
 
 def _encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
@@ -166,7 +119,7 @@ def _encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
 def _sort_encoded_keys(keys, vals, config, path, descending):
     enc = _encode(keys, descending)
     with profiling.span("vkrs/engine/" + path):
-        out_k, out_vs = _sort_encoded(enc, vals, config, path)
+        out_k, out_vs = SORTS[path](enc, vals, config)
     if descending:
         out_k = complement(out_k)
     return decode_keys(out_k, keys.dtype), out_vs
@@ -215,9 +168,8 @@ def sort_pairs(
     every payload is permuted by the same stable key order in one sort.
     Returns ``(sorted_keys, values_like)`` with the container type kept.
 
-    ``stable=False`` relaxes the order of equal keys and follows
-    ``ROUTE_TABLE["kv_unstable"]`` (``"kv_unstable64"`` for 64-bit keys) for
-    one 4-byte payload; every engine then runs its stable pipeline, also a
+    ``stable=False`` relaxes the order of equal keys, and the call takes the
+    route of the stable one: every engine runs its stable pipeline, also a
     valid unstable answer. The port's merge has no tie plane to drop, unlike
     the JAX engine's. The JAX package's packed path for "tiled" (32-bit key
     and 4-byte payload in one 64-bit sort key) lost to the stable carry at
@@ -237,8 +189,7 @@ def sort_pairs(
             )
         if any(v.device != keys.device for v in vals):
             raise ValueError("keys and values must lie on one device")
-        path = _route(keys, backend, vals,
-                      "kv_unstable" if not stable and len(vals) == 1 else "kv")
+        path = _route(keys, backend, vals)
         profiling.count("route." + path)
         out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
         return out_k, (type(values)(out_vs) if multi else out_vs[0])

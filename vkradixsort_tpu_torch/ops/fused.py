@@ -15,6 +15,7 @@ import torch
 
 from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig
 from vkradixsort_tpu_torch.ops import kernels, reference
+from vkradixsort_tpu_torch.ops.common import only_one_payload
 from vkradixsort_tpu_torch.utils import profiling
 
 # Most keys the kernel takes (csrc/fused.cu kFusedMaxN): positions fit 15
@@ -25,7 +26,7 @@ MAX_N = 1 << 15
 def sort_fused_plain(enc: torch.Tensor, values=None):
     """Plain version of the fused kernel: every LSD pass of the reference
     radix sort over one chunk."""
-    return reference._sort_encoded(enc, values, num_chunks=1)
+    return reference.radix_sort_encoded(enc, values, num_chunks=1)
 
 
 def sort_fused(enc: torch.Tensor, values=None, config: SortConfig = DEFAULT_CONFIG):
@@ -67,6 +68,14 @@ def sort_fused(enc: torch.Tensor, values=None, config: SortConfig = DEFAULT_CONF
     )
     profiling.count("launch.sort_fused")
     return keys_out, vals_out
+
+
+def sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig = DEFAULT_CONFIG):
+    """``backend="fused"``: :func:`sort_fused` with at most one payload;
+    ``(sorted_keys, sorted_vals_tuple)``."""
+    only_one_payload("fused", vals)
+    out_k, out_v = sort_fused(enc, vals[0] if vals else None, config)
+    return out_k, (out_v,) if vals else ()
 
 
 def _ptr(t):

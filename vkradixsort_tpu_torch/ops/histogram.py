@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import torch
 
-from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
 from vkradixsort_tpu_torch.ops import kernels, reference
 from vkradixsort_tpu_torch.ops.common import (
     BITS_PER_PASS,
@@ -26,6 +25,11 @@ from vkradixsort_tpu_torch.ops.common import (
     num_passes,
 )
 from vkradixsort_tpu_torch.utils import profiling
+
+# The per-pass API's default tile (keys a histogram row and a scatter block
+# cover): the fastest of the H100 sweep of its 1e8 u32 kv sort over 2048 to
+# 16384 (PERF.md; JAX takes 2048). No sorted result depends on it.
+TILE = 16384
 
 
 def check_digit_input(enc: torch.Tensor, shift: int, tile: int) -> None:
@@ -51,15 +55,13 @@ def digit_half(enc: torch.Tensor, shift: int):
     return (halves[0::2], 2, shift) if shift < 32 else (halves[1::2], 2, shift - 32)
 
 
-def tile_histograms_plain(enc: torch.Tensor, shift: int,
-                          tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+def tile_histograms_plain(enc: torch.Tensor, shift: int, tile: int = TILE) -> torch.Tensor:
     """Plain version of the histogram kernel: one ``bincount`` over
     ``tile_id * 256 + digit``."""
     return reference.digit_counts(extract_digit(enc, shift), tile)
 
 
-def tile_histograms(enc: torch.Tensor, shift: int,
-                    tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+def tile_histograms(enc: torch.Tensor, shift: int, tile: int = TILE) -> torch.Tensor:
     """``[cdiv(n, tile), 256]`` int32 counts of the digit
     ``(enc >> shift) & 0xFF`` in every ``tile`` consecutive keys (the last
     tile may be short). ``enc``: uint32 or uint64 encoded keys."""

@@ -15,16 +15,17 @@ pass, as the reference's two shaders per pass do:
      XLA.
 
 ``tile_destinations`` is the same kernel's destination mode: it writes the
-destinations and moves nothing (JAX's ``pass_destinations``).
-``sort_radix_tiled`` runs those passes on a CPU tensor, at the caller's
-tile. On a CUDA tensor it runs ``sort_onesweep`` (kernels
-``csrc/onesweep.cu``): one ``histogram.digit_histograms`` a sort, which
-counts every pass's digits in one read of the keys and scans them, then one
+destinations and moves nothing (JAX's ``pass_destinations``). No sort runs
+those passes; the tests hold the onesweep pass against them.
+
+``sort_radix_tiled`` runs ``sort_onesweep`` (kernels ``csrc/onesweep.cu``)
+on every device: one ``histogram.digit_histograms`` a sort, which counts
+every pass's digits in one read of the keys and scans them, then one
 ``onesweep_pass`` a pass, whose tiles find their bases by decoupled
 look-back, so the table and its scan never exist and the kernels' tiles are
 their own (``onesweep_shape``). Each kernel wrapper takes its plain version
 only for a CPU tensor. Destinations and offsets are int32, as in JAX, so the
-pipeline takes n < 2^31.
+pipeline takes n < 2^31 (``accepts``).
 
 ``sort_radix_tiled`` takes a payload set too, where the JAX engine takes one
 payload: one payload that fits a 512-thread pass with its key rides the
@@ -40,7 +41,6 @@ import functools
 
 import torch
 
-from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG
 from vkradixsort_tpu_torch.ops import gather, histogram, kernels, reference
 from vkradixsort_tpu_torch.ops.common import (
     BITS_PER_PASS,
@@ -63,9 +63,16 @@ PAYLOAD_BYTES = (1, 2, 4, 8)  # payload widths the scatter kernel moves
 CARRY_MAX_BYTES = 12
 
 
+def accepts(n: int, vals: tuple) -> bool:
+    """Whether radix_tiled sorts ``n`` keys carrying the payloads ``vals``:
+    its destinations and offsets are int32, so n < 2^31, and its kernels move
+    payloads of :data:`PAYLOAD_BYTES` bytes."""
+    return n < 1 << 31 and all(v.element_size() in PAYLOAD_BYTES for v in vals)
+
+
 def _check_input(enc: torch.Tensor, shift: int, tile: int) -> None:
     histogram.check_digit_input(enc, shift, tile)
-    if enc.shape[0] >= 1 << 31:
+    if not accepts(enc.shape[0], ()):
         raise ValueError(
             f"radix_tiled destinations are int32, so n must be below 2^31; got {enc.shape[0]}"
         )
@@ -84,7 +91,7 @@ def _check_move(enc: torch.Tensor, values) -> None:
     if values is not None:
         if values.shape != enc.shape or values.device != enc.device:
             raise ValueError("values must have the keys' shape and device")
-        if values.element_size() not in PAYLOAD_BYTES:
+        if not accepts(0, (values,)):
             raise TypeError(f"radix_tiled moves payloads of {PAYLOAD_BYTES} bytes, "
                             f"got {values.dtype}")
 
@@ -159,15 +166,14 @@ def tile_scatter(enc: torch.Tensor, values, shift: int, tile: int, base: torch.T
     return out_k, out_v
 
 
-def pass_destinations_plain(enc: torch.Tensor, shift: int, tile: int = DEFAULT_CONFIG.chunk):
+def pass_destinations_plain(enc: torch.Tensor, shift: int, tile: int = histogram.TILE):
     """Plain version of :func:`pass_destinations`: the plain histogram, the
     scan, the plain destinations."""
     base = reference.exclusive_bin_offsets(histogram.tile_histograms_plain(enc, shift, tile))
     return tile_destinations_plain(enc, shift, tile, base)
 
 
-def pass_destinations(enc: torch.Tensor, shift: int,
-                      tile: int = DEFAULT_CONFIG.chunk) -> torch.Tensor:
+def pass_destinations(enc: torch.Tensor, shift: int, tile: int = histogram.TILE) -> torch.Tensor:
     """Global int32 scatter destination of every element for the stable
     pass over the digit ``(enc >> shift) & 0xFF``: histogram, scan,
     destinations."""
@@ -176,7 +182,7 @@ def pass_destinations(enc: torch.Tensor, shift: int,
     return tile_destinations(enc, shift, tile, base)
 
 
-def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = DEFAULT_CONFIG.chunk):
+def radix_pass_tiled(enc: torch.Tensor, values, shift: int, tile: int = histogram.TILE):
     """One stable radix pass of the keys and ``values`` (or None): the
     histogram, the scan, then the rank and the move in one kernel, each in
     its span (``vkrs/radix/histogram``, ``scan``, ``scatter``). Returns
@@ -202,7 +208,7 @@ def lookback_bases_plain(enc: torch.Tensor, shift: int, tile: int,
 
 
 def onesweep_pass_plain(enc: torch.Tensor, values, shift: int, offset: torch.Tensor,
-                        tile: int = DEFAULT_CONFIG.chunk):
+                        tile: int = histogram.TILE):
     """Plain version of :func:`onesweep_pass`: the counts per tile, their
     cumsum over tiles plus ``offset``, then the plain move. The result does
     not depend on ``tile``."""
@@ -300,21 +306,9 @@ def carries(enc: torch.Tensor, value: torch.Tensor) -> bool:
     return enc.element_size() + value.element_size() <= CARRY_MAX_BYTES
 
 
-def _sort_carrying(enc: torch.Tensor, values, tile: int):
-    """The keys sorted carrying one payload (or None): the tiled passes at
-    ``tile`` on a CPU tensor, :func:`sort_onesweep` elsewhere."""
-    if enc.device.type != "cpu":
-        return sort_onesweep(enc, values)
-    for p in range(num_passes(enc.dtype)):
-        enc, values = radix_pass_tiled(enc, values, p * BITS_PER_PASS, tile)
-    return enc, values
-
-
-def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.chunk):
-    """Full stable LSD sort of uint32/uint64 encoded keys: 4 passes for u32,
-    8 for u64. On a CPU tensor the tiled passes at ``tile``
-    (:func:`radix_pass_tiled`); elsewhere :func:`sort_onesweep`, whose
-    kernels tile by their own shape.
+def sort_radix_tiled(enc: torch.Tensor, values=None):
+    """Full stable LSD sort of uint32/uint64 encoded keys by
+    :func:`sort_onesweep`: 4 passes for u32, 8 for u64.
 
     ``values``: None, one payload, or a tuple of payloads, each of 1, 2, 4
     or 8 bytes an element and the keys' length. No payload, or one that with
@@ -325,7 +319,7 @@ def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.
     plain indexing). Returns ``(sorted_keys, sorted_values)``, the values as
     they were passed (None, a tensor or a tuple); the inputs are not
     modified."""
-    _check_input(enc, 0, tile)
+    _check_input(enc, 0, 1)
     multi = isinstance(values, tuple)
     vals = values if multi else (() if values is None else (values,))
     for v in vals:
@@ -335,11 +329,11 @@ def sort_radix_tiled(enc: torch.Tensor, values=None, tile: int = DEFAULT_CONFIG.
     if enc.shape[0] <= 1:
         out_k, out_vs = enc.clone(), tuple(v.clone() for v in vals)
     elif len(vals) > 1 or (vals and not carries(enc, vals[0])):
-        out_k, perm = _sort_carrying(enc, positions(enc.shape[0], enc.device), tile)
+        out_k, perm = sort_onesweep(enc, positions(enc.shape[0], enc.device))
         with profiling.span("vkrs/radix/gather"):
             out_vs = gather.gather_columns(perm, vals)
     else:
-        out_k, out_v = _sort_carrying(enc, vals[0] if vals else None, tile)
+        out_k, out_v = sort_onesweep(enc, vals[0] if vals else None)
         out_vs = (out_v,) if vals else ()
     if multi:
         return out_k, out_vs

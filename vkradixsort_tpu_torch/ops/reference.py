@@ -30,6 +30,7 @@ from vkradixsort_tpu_torch.ops.common import (
     extract_digit,
     num_passes,
     positions,
+    take,
 )
 
 
@@ -97,7 +98,7 @@ def radix_pass(keys: torch.Tensor, values, shift: int, num_chunks: int = 1):
     return scatter(keys, dest), None if values is None else scatter(values, dest)
 
 
-def _sort_encoded(keys: torch.Tensor, values, num_chunks: int = 1):
+def radix_sort_encoded(keys: torch.Tensor, values, num_chunks: int = 1):
     """Every LSD pass over encoded (uint32/uint64) keys, carrying one
     payload or None."""
     if keys.shape[0] == 0:
@@ -107,10 +108,20 @@ def _sort_encoded(keys: torch.Tensor, values, num_chunks: int = 1):
     return keys, values
 
 
+def sort_encoded(enc: torch.Tensor, vals: tuple, config=None):
+    """``backend="reference"``: one payload or none rides the LSD passes; a
+    set rides as positions, then is gathered. ``(sorted_keys, vals_tuple)``."""
+    if len(vals) <= 1:
+        out_k, out_v = radix_sort_encoded(enc, vals[0] if vals else None)
+        return out_k, (out_v,) if vals else ()
+    out_k, perm = radix_sort_encoded(enc, torch.arange(enc.shape[0], device=enc.device))
+    return out_k, tuple(take(v, perm) for v in vals)
+
+
 def radix_sort_reference(keys: torch.Tensor, values=None, num_chunks: int = 1):
     """Full stable LSD radix sort of ``keys`` (any key dtype), carrying
     ``values``: the sorted keys, or ``(keys, values)`` when values are given."""
-    out_keys, out_values = _sort_encoded(encode_keys(keys), values, num_chunks)
+    out_keys, out_values = radix_sort_encoded(encode_keys(keys), values, num_chunks)
     out_keys = decode_keys(out_keys, keys.dtype)
     if values is None:
         return out_keys

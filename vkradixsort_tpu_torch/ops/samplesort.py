@@ -35,11 +35,13 @@ from __future__ import annotations
 
 import torch
 
+from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig
 from vkradixsort_tpu_torch.ops import kernels, segsort
 from vkradixsort_tpu_torch.ops.common import (
     bits_view,
     cdiv,
     composite_searchsorted,
+    only_one_payload,
     pad_sentinel,
     pad_to,
     round_up,
@@ -355,3 +357,16 @@ def sort_pairs_samplesort(
     out_k, out_v = _sort_buckets(slots, lens, n)
     out = (segsort.from_signed_order(out_k, enc.dtype), out_v.view(values.dtype))
     return out + (False,) if _debug_overflow else out
+
+
+def sort_encoded(enc: torch.Tensor, vals: tuple, config: SortConfig = DEFAULT_CONFIG):
+    """``backend="samplesort"``: keys alone or with one payload, with
+    ``config.tile`` as the tile and bucket target (None: the defaults);
+    ``(sorted_keys, sorted_vals_tuple)``."""
+    only_one_payload("samplesort", vals)
+    grain = {} if config.tile is None else dict(tile_target=config.tile,
+                                                bucket_target=config.tile)
+    if not vals:
+        return sort_samplesort(enc, **grain), ()
+    out_k, out_v = sort_pairs_samplesort(enc, vals[0], **grain)
+    return out_k, (out_v,)
