@@ -1,6 +1,7 @@
-"""The control of the check: the reference in the program's place, with
-rows of equal keys in reverse input order, which breaks the stability the
-configurations guarantee. The check has to call every such run incorrect.
+"""The control of the check: the reference of the cell's call
+(``sortbench/calls/<call>.py``) in the program's place, with rows of equal
+keys in reverse input order, which breaks the stability the configurations
+guarantee. The check has to call every such run incorrect.
 
     python3 sortbench/control.py --workload <cell> --seeds 11,12,13 --seconds 3
 
@@ -26,7 +27,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from sortbench import harness, reference
+    from sortbench import harness
 
     p = argparse.ArgumentParser(prog="python3 sortbench/control.py")
     p.add_argument("--workload", required=True)
@@ -37,10 +38,11 @@ def main(argv=None) -> int:
         harness.log("[control] needs a CUDA device")
         return 2
     cell = harness.find_cell(args.workload)
+    control = harness.control(harness.load_call(cell.traffic["call"]))
     rejected = []
     for seed in (int(s) for s in args.seeds.split(",")):
         r = harness.run_cell(cell, seed, args.seconds, False, "cuda:0", time.perf_counter(),
-                             sort_fn=reference.control_sort)
+                             sort_fn=control)
         torch.cuda.empty_cache()
         rejected.append(not r["correct"])
         print(json.dumps({"workload": cell.name, "seed": seed, "correct": r["correct"],

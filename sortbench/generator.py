@@ -3,7 +3,9 @@ the plan of calls a run cycles through, and the answers the check keeps.
 
 A traffic file (``sortbench/traffic/<name>.json``) holds:
 
-  call           "sort_pairs", the port's public call
+  call           the port's public call the cell runs: the call file
+                 ``sortbench/calls/<call>.py`` (``sort_pairs``, ``argsort``;
+                 a later call is a new file there), which the harness loads
   payloads       the table's columns that ride along with the keys
   rows           "table" (each call sorts the whole table),
                  {"sizes": [n, ...], "each": K}: every listed size K times

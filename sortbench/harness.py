@@ -1,10 +1,17 @@
 """One run of one cell: set-up, the window, the traced stretch, the check.
 
-A cell is found by its name in ``BENCHMARK.json``: its configuration file,
-its traffic file ``sortbench/traffic/<traffic>.json`` and, for every metric
-it reports, the reader ``sortbench/metrics/<metric>.py`` (``read(run)``,
-which returns a number or None). A later cell, mix or metric is new files
-and new entries; nothing here names one.
+A cell is found by its name in ``BENCHMARK.json``: its configuration file
+(whose key law other than ``uniform`` or ``zipf`` is the file
+``sortbench/keys/<distribution>.py``, see :mod:`sortbench.inputs`), its
+traffic file ``sortbench/traffic/<traffic>.json``, the traffic's call
+``sortbench/calls/<call>.py`` and, for every metric it reports, the reader
+``sortbench/metrics/<metric>.py`` (``read(run)``, which returns a number or
+None). A call file gives ``program()``, the port's public call as
+``fn(keys, payloads) -> (first column, tuple of further columns)``, and
+``reference(keys, payloads, reverse_ties=False)``, the plain answer in the
+same shape, which imports nothing of the port; ``reverse_ties=True`` is the
+call's control. A later cell, mix, call, key law or metric is new files and
+new entries; nothing here names one.
 
 The window is a closed loop with one caller: before it issues call i+1 the
 host waits for call i-1 (``in_flight`` 2), CUDA events on the stream time
@@ -12,15 +19,17 @@ each call, and every input comes from the pool that set-up made and warmed
 up. At moments drawn from the seed the loop keeps the answer of the next
 call of a plan entry chosen for that moment (``generator.samples``); once
 the window has closed and its peak memory has been read, the reference
-sorts the same inputs again and every kept answer is compared with it, row
-by row. The window's peak memory is read without the answers kept for the
-check (:class:`PeakMemory`): it is what the sort holds beside its inputs.
+of the cell's call works the same inputs out again and every kept answer
+is compared with it, row by row. The window's peak memory is read without
+the answers kept for the check (:class:`PeakMemory`): it is what the sort
+holds beside its inputs.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -71,13 +80,22 @@ def find_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
                 root / "sortbench" / "metrics")
 
 
-def load_reader(metrics_dir: pathlib.Path, name: str):
-    """The ``read`` function of ``metrics_dir/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(f"sortbench_metric.{name}",
-                                                  metrics_dir / f"{name}.py")
+def _load(path: pathlib.Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metrics_dir: pathlib.Path, name: str):
+    """The ``read`` function of ``metrics_dir/<name>.py``."""
+    return _load(metrics_dir / f"{name}.py", f"sortbench_metric.{name}").read
+
+
+def load_call(name: str):
+    """The call file ``sortbench/calls/<name>.py``, beside the harness: its
+    ``program()`` and ``reference(keys, payloads, reverse_ties=False)``."""
+    return _load(HERE / "calls" / f"{name}.py", f"sortbench_call.{name}")
 
 
 def read_metrics(cell: Cell, entries: list, run) -> dict:
@@ -91,18 +109,15 @@ def read_metrics(cell: Cell, entries: list, run) -> dict:
 
 
 def program_sort():
-    """The system under test: the port's public ``sort_pairs`` on its
-    default route, on ``(keys, payload tuple)``."""
-    import vkradixsort_tpu_torch as vk
+    """The port's public ``sort_pairs`` on its default route, on ``(keys,
+    payload tuple)``: the program of the call ``sort_pairs``."""
+    return load_call("sort_pairs").program()
 
-    def sort(keys, payloads):
-        if len(payloads) == 1:
-            out_k, out_v = vk.sort_pairs(keys, payloads[0])
-            return out_k, (out_v,)
-        out_k, out_vs = vk.sort_pairs(keys, tuple(payloads))
-        return out_k, tuple(out_vs)
 
-    return sort
+def control(call):
+    """The control of a call: its reference in the program's place, with
+    rows of equal keys in reverse input order."""
+    return functools.partial(call.reference, reverse_ties=True)
 
 
 class HostEvent:
@@ -128,11 +143,12 @@ def _sync(device):
 
 
 def answer_bytes(out) -> int:
-    """The device memory an answer ``(keys, payload tuple)`` holds: each
-    storage once, rounded up to the caching allocator's 512-byte blocks."""
-    keys, payloads = out
+    """The device memory an answer ``(first column, tuple of further
+    columns)`` of a call holds: each storage once, rounded up to the caching
+    allocator's 512-byte blocks."""
+    first, rest = out
     storages = {}
-    for t in (keys, *payloads):
+    for t in (first, *rest):
         st = t.untyped_storage()
         storages[st.data_ptr()] = st.nbytes()
     return sum(-(-n // 512) * 512 for n in storages.values())
@@ -269,17 +285,16 @@ def traced_stretch(sort_fn, args, plan, device, in_flight, first, calls):
     return trace.summarize(events, w.calls, w.rows, in_flight)
 
 
-def check(kept, args) -> tuple:
-    """Compare every kept answer with the reference's answer on the same
-    inputs; frees each answer once compared. ``(mismatched rows, wrong
-    answers, answers checked)``."""
+def check(kept, args, plain) -> tuple:
+    """Compare every kept answer with ``plain``'s answer (the reference of
+    the cell's call) on the same inputs; frees each answer once compared.
+    ``(mismatched rows, wrong answers, answers checked)``."""
     mismatched = wrong = checked = 0
     while kept:
-        j, (out_k, out_v) = kept.pop(0)
-        keys, vals = args[j]
-        ref_k, ref_v = reference.sort_pairs(keys, vals)
-        m = reference.mismatched_rows(out_k, out_v, ref_k, ref_v)
-        del out_k, out_v, ref_k, ref_v
+        j, (out_first, out_rest) = kept.pop(0)
+        ref_first, ref_rest = plain(*args[j])
+        m = reference.mismatched_rows(out_first, out_rest, ref_first, ref_rest)
+        del out_first, out_rest, ref_first, ref_rest
         mismatched += m
         wrong += m > 0
         checked += 1
@@ -321,7 +336,8 @@ def log(*a):
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: float,
              sort_fn=None) -> dict:
     """One run of ``cell``; returns the result line's object. ``sort_fn``
-    replaces the program (the control and the fault tests do)."""
+    replaces the program of the cell's call (the control and the fault
+    tests do)."""
     device = torch.device(device)
     seed %= 1 << 64
     mark = time.perf_counter()
@@ -333,8 +349,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
         parts[name] = now - mark
         mark = now
 
+    call = load_call(cell.traffic["call"])
     if sort_fn is None:
-        sort_fn = program_sort()
+        sort_fn = call.program()
     part("program_import_s")
     if device.type == "cuda":
         torch.cuda.init()
@@ -372,7 +389,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
         summary = traced_stretch(sort_fn, args, plan, device, in_flight, win.next_call,
                                  int(traffic["trace_calls"]))
     card = card_reading() if device.type == "cuda" else {}
-    mismatched, wrong, checked = check(win.kept, args)
+    mismatched, wrong, checked = check(win.kept, args, call.reference)
 
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     peaks = json.loads((HERE / "peaks.json").read_text())

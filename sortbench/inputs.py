@@ -13,19 +13,25 @@ Key distributions (the configuration's ``key``):
            ``a``, in float64 on the device, reduced mod 2^64 - 1 as
            ``utils/fixtures.make_keys(..., "zipf")`` does: the law of
            numpy's draws, not their stream
+  <name>   any other law is the file ``sortbench/keys/<name>.py``, whose
+           ``make(n, key, device, gen)`` draws the ``n`` keys of one key
+           set on the table's generator; a later law is a new file there
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import torch
 
-_INT_OF = {"uint32": torch.int32, "int32": torch.int32, "uint64": torch.int64,
-           "int64": torch.int64}
-_UNSIGNED = {"uint32": torch.uint32, "uint64": torch.uint64}
+INT_OF = {"uint32": torch.int32, "int32": torch.int32, "uint64": torch.int64,
+          "int64": torch.int64}
+UNSIGNED = {"uint32": torch.uint32, "uint64": torch.uint64}
 _INT63_MAX = float(2**63 - 1)  # rounds to 2^63
 ZIPF_CHUNK = 1 << 24  # candidates drawn at once: bounds the set-up's scratch memory
+KEYS = pathlib.Path(__file__).resolve().parent / "keys"
 
 
 @dataclasses.dataclass
@@ -38,11 +44,11 @@ class Table:
         return self.keys[0].shape[0]
 
 
-def _full_range(n: int, dtype: str, device, gen) -> torch.Tensor:
-    idt = _INT_OF[dtype]
+def full_range(n: int, dtype: str, device, gen) -> torch.Tensor:
+    idt = INT_OF[dtype]
     bits = torch.empty(n, dtype=idt, device=device).random_(
         torch.iinfo(idt).min, None, generator=gen)
-    return bits.view(_UNSIGNED[dtype]) if dtype in _UNSIGNED else bits
+    return bits.view(UNSIGNED[dtype]) if dtype in UNSIGNED else bits
 
 
 def zipf(n: int, a: float, device, gen) -> torch.Tensor:
@@ -69,13 +75,24 @@ def zipf(n: int, a: float, device, gen) -> torch.Tensor:
 def make_keys(n: int, key: dict, device, gen) -> torch.Tensor:
     dtype, dist = key["dtype"], key["distribution"]
     if dist == "uniform":
-        return _full_range(n, dtype, device, gen)
+        return full_range(n, dtype, device, gen)
     if dist == "zipf":
         if dtype != "uint64":
             raise ValueError("zipf keys are uint64 (mod 2^64 - 1)")
         # draws lie in [1, 2^63), so the reduction mod 2^64 - 1 keeps them
         return zipf(n, float(key["a"]), device, gen).view(torch.uint64)
-    raise ValueError(f"unknown key distribution {dist!r}")
+    return key_law(dist)(n, key, device, gen)
+
+
+def key_law(name: str):
+    """The ``make`` of ``sortbench/keys/<name>.py``."""
+    path = KEYS / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown key distribution {name!r}: no {path}")
+    spec = importlib.util.spec_from_file_location(f"sortbench_keys.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make
 
 
 def make_column(name: str, dtype: str, n: int, device, gen) -> torch.Tensor:
@@ -85,7 +102,7 @@ def make_column(name: str, dtype: str, n: int, device, gen) -> torch.Tensor:
         return torch.arange(n, dtype=torch.int32, device=device).view(torch.uint32)
     if dtype == "float32":
         return torch.rand(n, dtype=torch.float32, device=device, generator=gen)
-    return _full_range(n, dtype, device, gen)
+    return full_range(n, dtype, device, gen)
 
 
 def make_table(config: dict, traffic: dict, device, seed: int) -> Table:

@@ -5,7 +5,9 @@ bandwidth.
 The least traffic of a sort reads each key and payload byte once and writes
 it once: 2 x (key bytes + payload bytes) a row, so 16 B for a u32 key with a
 u32 row id, 24 B for a u64 key with one, 32 B for a u32 key with three
-4-byte columns. It counts the same work whatever implements the sort, so a
+4-byte columns. An argsort carries no payload: 8 B a row for u32 keys, which
+is its least traffic too (read each 4-byte key, write its 4-byte position).
+It counts the same work whatever implements the sort, so a
 share above 100% means the time left out part of the work. The peak is the
 card's entry in ``sortbench/peaks.json``; a card not listed gives nothing.
 """

@@ -66,12 +66,6 @@ def sort_pairs(keys: torch.Tensor, payloads: tuple, reverse_ties: bool = False):
     return take(keys, perm), tuple(take(p, perm) for p in payloads)
 
 
-def control_sort(keys: torch.Tensor, payloads: tuple):
-    """The control: the reference in the program's place, with equal keys
-    in reverse input order."""
-    return sort_pairs(keys, payloads, reverse_ties=True)
-
-
 def mismatched_rows(out_keys, out_payloads, ref_keys, ref_payloads) -> int:
     """Rows of the answer at which the keys or any payload differ from the
     reference, bit for bit; every row when the shapes do not agree."""

@@ -209,7 +209,7 @@ def run(cell, seed: int, calls: int | None, device="cuda:0") -> dict:
 
     device = torch.device(device)
     traffic = cell.traffic
-    sort_fn = harness.program_sort()
+    sort_fn = harness.load_call(traffic["call"]).program()
     c0 = _counters()
     table = inputs.make_table(cell.config, traffic, device, seed)
     plan = generator.plan(traffic, table.rows, seed)

@@ -4,6 +4,9 @@ name from files alone."""
 import json
 import pathlib
 import re
+import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -60,7 +63,8 @@ def test_workloads():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] in (1, 4) and one_line(w["why"])
-        assert (ROOT / "sortbench" / "traffic" / f"{w['traffic']}.json").exists()
+        traffic = json.loads((ROOT / "sortbench" / "traffic" / f"{w['traffic']}.json").read_text())
+        assert (ROOT / "sortbench" / "calls" / f"{traffic['call']}.py").exists()
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
     assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(BENCH["workloads"]) // 4)
@@ -98,15 +102,60 @@ def test_every_cell_reports_enough():
         assert all(m["moves"] in names for m in cell.per_layer)
 
 
+# a later call and a later key law, as the files a later change would add
+DESCENDING_CALL = '''
+from sortbench import reference as plain
+
+
+def program():
+    import vkradixsort_tpu_torch as vk
+
+    def sort(keys, payloads):
+        out_k, out_v = vk.sort_pairs(keys, payloads[0], descending=True)
+        return out_k, (out_v,)
+
+    return sort
+
+
+def reference(keys, payloads, reverse_ties=False):
+    perm = plain.permutation((~plain.bits(keys)).view(keys.dtype), reverse_ties)
+    return plain.take(keys, perm), tuple(plain.take(p, perm) for p in payloads)
+'''
+LOW_BITS_LAW = '''
+import torch
+
+
+def make(n, key, device, gen):
+    return torch.randint(0, 1 << int(key["bits"]), (n,), dtype=torch.int32, device=device,
+                         generator=gen).view(torch.uint32)
+'''
+RUN_TINY = """
+import json, pathlib, sys, time
+sys.path[:0] = [sys.argv[1], sys.argv[2]]  # the copy's sortbench before the repo's
+from sortbench import harness
+assert harness.HERE == pathlib.Path(sys.argv[1]).resolve() / "sortbench"
+cell = harness.find_cell("tiny", root=pathlib.Path(sys.argv[1]))
+control = harness.control(harness.load_call(cell.traffic["call"]))
+runs = [harness.run_cell(cell, 2**31 + 9, 0.2, False, "cpu", time.perf_counter(), sort_fn=f)
+        for f in (None, control)]
+print(json.dumps([[r["correct"], r["checks"]["mismatched_rows"]["value"]] for r in runs]))
+"""
+
+
 def test_new_cell_from_new_files(tmp_path):
-    """A later cell is a config file, a traffic file and entries: the
-    harness finds it by name and plans its calls, with no code edited."""
-    (tmp_path / "sortbench" / "configs").mkdir(parents=True)
-    (tmp_path / "sortbench" / "traffic").mkdir()
+    """A later cell is a config file, a traffic file, a call file, a
+    key-law file and entries: in a copy of the benchmark that gains only
+    those, the harness finds the cell by name, plans its calls, and runs it
+    whole on the CPU, where the program passes the check and the call's
+    control does not; no code of the copy is edited."""
+    shutil.copytree(ROOT / "sortbench", tmp_path / "sortbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (tmp_path / "sortbench" / "calls" / "sort_pairs_desc.py").write_text(DESCENDING_CALL)
+    (tmp_path / "sortbench" / "keys" / "low_bits.py").write_text(LOW_BITS_LAW)
     config = {"name": "u32-tiny", "source": "https://example.org/tiny", "rows": 5000,
-              "key": {"dtype": "uint32", "distribution": "uniform"},
+              "key": {"dtype": "uint32", "distribution": "low_bits", "bits": 6},
               "columns": {"row_id": "uint32"}, "reduced": [], "assumed": {}}
-    traffic = {"call": "sort_pairs", "payloads": ["row_id"],
+    traffic = {"call": "sort_pairs_desc", "payloads": ["row_id"],
                "rows": {"log_uniform": [100, 1000], "sizes": 8}, "offset": "uniform",
                "key_sets": 1, "in_flight": 2, "check_answers": 3, "trace_calls": 4}
     (tmp_path / "sortbench" / "configs" / "u32-tiny.json").write_text(json.dumps(config))
@@ -128,3 +177,9 @@ def test_new_cell_from_new_files(tmp_path):
     assert len(calls) == 8 and all(c.offset + c.rows <= 5000 for c in calls)
     with pytest.raises(KeyError):
         harness.find_cell("absent", root=tmp_path)
+    out = subprocess.run([sys.executable, "-c", RUN_TINY, str(tmp_path), str(ROOT)],
+                         cwd=tmp_path, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    (ok, ok_missed), (control_ok, control_missed) = json.loads(out.stdout.splitlines()[-1])
+    assert ok and ok_missed == 0
+    assert not control_ok and control_missed > 0

@@ -9,10 +9,12 @@ import time
 import pytest
 from conftest import small_cell
 
-from sortbench import harness, reference
+from sortbench import harness
 
-# 2^24 rows: above the 2^23 at which the route table sends one payload to radix_tiled
-CELLS = {"u32-pairs-1e8": 1 << 24, "u64zipf-pairs-1e8": 1 << 24, "u32-pairs-small": 1 << 24}
+# 2^24 rows: above the 2^23 at which the route table sends one payload to
+# radix_tiled; 2^26 for argsort, whose radix_tiled route starts above 2^25
+CELLS = {"u32-pairs-1e8": 1 << 24, "u64zipf-pairs-1e8": 1 << 24, "u32-pairs-small": 1 << 24,
+         "u32-lowentropy-pairs-1e8": 1 << 24, "u32-argsort-1e8": 1 << 26}
 
 
 @pytest.mark.cuda
@@ -30,9 +32,11 @@ def test_traced_run_on_the_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["u32-pairs-1e8", "u64zipf-pairs-1e8"])
+@pytest.mark.parametrize("name", ["u32-pairs-1e8", "u64zipf-pairs-1e8", "u32-lowentropy-pairs-1e8",
+                                  "u32-argsort-1e8"])
 def test_control_rejected_on_the_card(cuda_device, name):
-    r = harness.run_cell(small_cell(name, CELLS[name]), 2**31 + 12, 0.5, False, cuda_device,
-                         time.perf_counter(),
-                         sort_fn=reference.control_sort)
+    cell = small_cell(name, CELLS[name])
+    control = harness.control(harness.load_call(cell.traffic["call"]))
+    r = harness.run_cell(cell, 2**31 + 12, 0.5, False, cuda_device, time.perf_counter(),
+                         sort_fn=control)
     assert not r["correct"] and r["checks"]["mismatched_rows"]["value"] > 0

@@ -1,6 +1,7 @@
 """Configuration and traffic files, the table made from the seed, and the
 plan of calls."""
 
+import hashlib
 import json
 import math
 import pathlib
@@ -30,7 +31,8 @@ def test_config_loads(path):
 @pytest.mark.parametrize("path", TRAFFIC, ids=lambda p: p.stem)
 def test_traffic_loads(path):
     t = json.loads(path.read_text())
-    assert t["call"] == "sort_pairs" and t["payloads"]
+    assert (HERE / "calls" / f"{t['call']}.py").is_file()
+    assert isinstance(t["payloads"], list) and (t["payloads"] or t["call"] == "argsort")
     assert t["in_flight"] in (1, 2) and t["check_answers"] >= 1 and t["trace_calls"] >= 1
     assert generator.sizes(t, 100_000_000)
     assert 1 <= len(t["source"]) <= 200 and "\n" not in t["source"]
@@ -49,6 +51,62 @@ def test_seed_fixes_table(path):
     assert not torch.equal(a.keys[0].view(torch.uint8), a.keys[1].view(torch.uint8))
     assert a.keys[0].dtype == {"uint32": torch.uint32, "uint64": torch.uint64}[config["key"]["dtype"]]
     assert torch.equal(a.columns["row_id"].view(torch.int32), torch.arange(4096, dtype=torch.int32))
+
+
+# sha256 of a table's bytes (key sets, then the configuration's columns in
+# its order) at 4096 rows and two key sets, drawn on the CPU's generator:
+# the digests of these three configurations' tables before key laws became
+# files, so their draws are still byte for byte what they were
+TABLE_SHA256 = {
+    "u32-uniform": "d19b200691793b74d44ebee3b93b566ee58188f8ef9c6611d7a67431485a3366",
+    "u64-uniform": "bc089d73abc418542b6a9bea650c277affa1ccb33d12186c8e63253a9c4a1e4c",
+    "u64-zipf": "07f305a3142704aa64365f69254323f93f6328fff8873e10b3b0867565a3df01",
+}
+
+
+@pytest.mark.parametrize("name", sorted(TABLE_SHA256))
+def test_table_digest_pinned(name):
+    config = {**json.loads((HERE / "configs" / f"{name}.json").read_text()), "rows": 4096}
+    traffic = {"payloads": list(config["columns"]), "key_sets": 2}
+    t = inputs.make_table(config, traffic, "cpu", BIG_SEED)
+    h = hashlib.sha256()
+    for x in t.keys + [t.columns[c] for c in config["columns"]]:
+        h.update(x.contiguous().view(torch.uint8).numpy().tobytes())
+    assert h.hexdigest() == TABLE_SHA256[name]
+
+
+@pytest.mark.parametrize("dtype,words", [("uint32", 5), ("uint64", 5), ("uint32", 2)])
+def test_and_words_bit_probability(dtype, words):
+    """Each bit of the AND of ``words`` uniform draws is 1 with probability
+    2^-words, within 4 sigma at 2^18 keys."""
+    n = 1 << 18
+    key = {"dtype": dtype, "distribution": "and_words", "words": words}
+    k = inputs.make_keys(n, key, "cpu", torch.Generator().manual_seed(11))
+    assert k.dtype == inputs.UNSIGNED[dtype] and k.shape == (n,)
+    width = k.element_size() * 8
+    signed = k.view(inputs.INT_OF[dtype]).long()
+    p = 2.0**-words
+    sigma = math.sqrt(p * (1 - p) / n)
+    for b in range(width):
+        share = float(((signed >> b) & 1).double().mean())
+        assert abs(share - p) < 4 * sigma, (b, share)
+
+
+def test_and_words_low_entropy_config():
+    """The configuration's law: 36% of the keys are 0 ((31/32)^32) and each
+    8-bit digit is 0 in 77.6% of them ((31/32)^8)."""
+    c = json.loads((HERE / "configs" / "u32-lowentropy.json").read_text())
+    k = inputs.make_keys(1 << 18, c["key"], "cpu", torch.Generator().manual_seed(12))
+    v = k.view(torch.int32).long() & 0xFFFFFFFF
+    assert abs(float((v == 0).double().mean()) - (31 / 32) ** 32) < 0.005
+    for d in range(4):
+        assert abs(float((((v >> 8 * d) & 0xFF) == 0).double().mean()) - (31 / 32) ** 8) < 0.005
+
+
+def test_unknown_key_law_is_refused():
+    with pytest.raises(ValueError, match="no_such_law"):
+        inputs.make_keys(8, {"dtype": "uint32", "distribution": "no_such_law"}, "cpu",
+                         torch.Generator().manual_seed(1))
 
 
 def test_uniform_keys_cover_32_bits():

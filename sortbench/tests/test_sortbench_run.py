@@ -1,5 +1,6 @@
 """A whole run on the CPU at a small size: the program passes the check;
-the control and each fault a one-card sort can have do not."""
+the control and each fault a one-card sort can have do not, through the
+cell's call (``sort_pairs`` or ``argsort``)."""
 
 import json
 import time
@@ -16,6 +17,8 @@ SIZES = {
     "u32-pairs-1e8": dict(rows=1 << 18),
     "u64zipf-pairs-1e8": dict(rows=1 << 16),
     "u32-pairs-small": dict(rows=1 << 21, rows_spec={"sizes": [1 << 19], "each": 4}),
+    "u32-lowentropy-pairs-1e8": dict(rows=1 << 16),
+    "u32-argsort-1e8": dict(rows=1 << 18),
 }
 
 
@@ -52,33 +55,70 @@ def test_traced_run_reports_per_layer_metrics():
     assert "busy_s" in r["device"] and r["device"]["window_s"] > 0
 
 
-def unchanged(keys, payloads):
-    return keys.clone(), tuple(p.clone() for p in payloads)
+# each call's answer for rows left in input order: what a step that returns
+# its input unchanged gives
+IN_ORDER = {
+    "sort_pairs": lambda keys, payloads: (keys, payloads),
+    "argsort": lambda keys, payloads: (
+        torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device).view(torch.uint32),
+        ()),
+}
 
 
-def half_left_out(keys, payloads):
-    """Sorts the first half of the rows and passes the rest through."""
-    sort = harness.program_sort()
-    h = keys.shape[0] // 2
-    k, ps = sort(keys[:h], tuple(p[:h] for p in payloads))
-    return (torch.cat([reference.bits(k), reference.bits(keys[h:])]).view(keys.dtype),
-            tuple(torch.cat([reference.bits(a), reference.bits(p[h:])]).view(p.dtype)
-                  for a, p in zip(ps, payloads)))
+def columns(answer):
+    first, rest = answer
+    return [first, *rest]
 
 
-def answer_altered(keys, payloads):
-    """The program's answer with one payload value changed where it is made."""
-    k, ps = harness.program_sort()(keys, payloads)
-    last = ps[-1].clone()
-    reference.bits(last)[keys.shape[0] // 3] ^= 1
-    return k, (*ps[:-1], last)
+def answer(cols):
+    return cols[0], tuple(cols[1:])
+
+
+# each fault below takes the name of the cell's call and gives the sort_fn
+def control_sort(name):
+    return harness.control(harness.load_call(name))
+
+
+def unchanged(name):
+    def fault(keys, payloads):
+        return answer([c.clone() for c in columns(IN_ORDER[name](keys, payloads))])
+    return fault
+
+
+def half_left_out(name):
+    """Runs the call on the first half of the rows and leaves the rest in
+    input order."""
+    program = harness.load_call(name).program()
+
+    def fault(keys, payloads):
+        h = keys.shape[0] // 2
+        done = columns(program(keys[:h], tuple(p[:h] for p in payloads)))
+        left = columns(IN_ORDER[name](keys, payloads))
+        return answer([torch.cat([reference.bits(a), reference.bits(b[h:])]).view(a.dtype)
+                       for a, b in zip(done, left)])
+    return fault
+
+
+def answer_altered(name):
+    """The program's answer with one value of its last column changed where
+    it is made."""
+    program = harness.load_call(name).program()
+
+    def fault(keys, payloads):
+        cols = columns(program(keys, payloads))
+        last = cols[-1].clone()
+        reference.bits(last)[keys.shape[0] // 3] ^= 1
+        return answer(cols[:-1] + [last])
+    return fault
 
 
 @pytest.mark.parametrize("name", sorted(SIZES))
-@pytest.mark.parametrize("fault", [reference.control_sort, unchanged, half_left_out, answer_altered],
+@pytest.mark.parametrize("fault", [control_sort, unchanged, half_left_out, answer_altered],
                          ids=lambda f: f.__name__)
 def test_check_rejects(name, fault):
-    r = run(name, sort_fn=fault)
+    c = cell(name)
+    r = harness.run_cell(c, SEED, 0.5, False, "cpu", time.perf_counter(),
+                         sort_fn=fault(c.traffic["call"]))
     assert not r["correct"]
     assert r["checks"]["mismatched_rows"]["value"] > 0
     assert r["failed"] >= 1
