@@ -119,6 +119,16 @@ package's bench checks its 1e8 sort.
      (``gather_parts``: the lineitem set at 1e8 bitwise its plain version,
      beside its bound, its plain version and torch's indexing a column, and
      one and eight columns of each width);
+ 10d. the key-order transform (``key_order_parts``): 1e8 float64 keys of
+     db-benchmark's v3 law, ``round(U * 100, 6)``, mapped to the order of a
+     descending sort and back, each way bitwise its plain version and
+     torch's composed transform (``common.encode_keys`` and ``complement``,
+     ``complement`` and ``decode_keys``), timed both ways beside the bound
+     (each key read and written once a way), the plain version and torch's
+     transform; then ``sort_pairs(v3, id6, descending=True)`` at 1e8 on its
+     default route: its launches (2 ``key_order``, 1 digit histogram, 8
+     onesweep passes) and its answer bitwise a stable ``torch.sort`` of the
+     keys' descending order;
  11. the distributed sort: ``sort_sharded`` over ``LocalMesh([cuda:0] *
      8)`` at 1e8 stable u32 kv, overlap_chunks 1 and 2, local engine "xla"
      and "merge", each exact on the device with no overflow, balance <=
@@ -201,7 +211,10 @@ uniform u64 keys, and their launches in phase 14's benchmark run; the
 gather_columns entry (no TPU kernel: it moves a wide payload set after
 radix_tiled's sort of positions) takes its launches from phase 12's
 lineitem sort on its default route, its ms from the lineitem set at 1e8
-through a random permutation, and adds its ms by width and column count. The last is the run's JSON
+through a random permutation, and adds its ms by width and column count;
+the key_order entry (no TPU kernel: XLA fuses the JAX package's key
+encoding into its sort) takes its launches from phase 10d's descending
+float64 sort, its ms both ways on its keys. The last is the run's JSON
 result. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -230,6 +243,7 @@ from vkradixsort_tpu_torch.ops import (
     gather,
     histogram,
     kernels,
+    keyorder,
     merge,
     radix_tiled,
     reference,
@@ -241,6 +255,9 @@ from vkradixsort_tpu_torch.ops.common import (
     NUM_BINS,
     bits_view,
     cdiv,
+    complement,
+    decode_keys,
+    encode_keys,
     extract_digit,
     positions,
     take,
@@ -265,7 +282,8 @@ PLAIN_OPS_PER_S = 67e12  # H100 SXM 32-bit arithmetic outside the tensor cores (
 LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "tile_histograms",
           "radix_scatter": "tile_scatter", "radix_dest": "tile_destinations",
           "digit_histograms": "digit_histograms", "onesweep": "onesweep_pass",
-          "fused": "sort_fused", "placement": "place_runs", "gather_columns": "gather_columns"}
+          "fused": "sort_fused", "placement": "place_runs", "gather_columns": "gather_columns",
+          "key_order": "key_order"}
 
 
 def launches_since(before: dict, *kernels_: str) -> dict:
@@ -1678,6 +1696,64 @@ def gather_parts(dev, smi: str) -> dict:
     return st
 
 
+def key_order_parts(dev, smi: str) -> dict:
+    """The key-order kernel (``csrc/keyorder.cu``) at 1e8 on float64 keys of
+    db-benchmark's v3 law, descending: each way bitwise its plain version
+    (``key_order_plain``) and torch's composed transform, both ways timed
+    beside their bound (each key read and written once a way, 32 B a row),
+    the plain version and torch's transform; then the launches of
+    ``sort_pairs(v3, id6, descending=True)`` on its default route and its
+    answer bitwise a stable ``torch.sort`` of the keys' descending order."""
+    n = N_MAIN
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    keys = torch.round(torch.rand(n, dtype=f64, device=dev, generator=gen) * 1e8) / 1e6
+    fwd = keyorder.masks(f64, True, inverse=False)
+    inv = keyorder.masks(f64, True, inverse=True)
+
+    def library():  # what the dispatcher ran before the kernel: 4 + 4 torch ops
+        return decode_keys(complement(complement(encode_keys(keys))), f64)
+
+    enc = keyorder.encode(keys, True)
+    st = {"err": max(max_abs_err([bits_view(enc)], [keyorder.key_order_plain(keys, *fwd)]),
+                     max_abs_err([enc], [complement(encode_keys(keys))]))}
+    dec = keyorder.decode(enc.clone(), f64, True)
+    st["err"] = max(st["err"], max_abs_err([bits_view(dec)], [keyorder.key_order_plain(enc, *inv)]),
+                    max_abs_err([dec], [keys]))
+    del enc, dec
+    st["bound"] = bound_ms(32 * n)
+    st["ms"] = time_ms(lambda: keyorder.decode(keyorder.encode(keys, True), f64, True,
+                                               in_place=True))
+    st["plain"] = time_ms(lambda: keyorder.key_order_plain(keyorder.key_order_plain(keys, *fwd),
+                                                           *inv), reps=3)
+    st["library"] = time_ms(library)
+    phase("time", f"n={n} key_order, float64 v3 keys, descending, both ways: {st['ms']:.4f} ms "
+                  f"(bound {st['bound']:.4f}, {st['bound'] / st['ms']:.1%}; plain "
+                  f"{st['plain']:.4f}; library, torch's composed transform: "
+                  f"{st['library']:.4f}); max_abs_err {st['err']} [{smi}]")
+    id6 = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    c0 = profiling.counters()
+    ok, ov = vt.sort_pairs(keys, id6, descending=True)
+    torch.cuda.synchronize()
+    moved = profiling.since(c0)
+    st["launches"] = moved.get("launch.key_order", 0)
+    want = {"route.radix_tiled": 1, "launch.key_order": 2, "launch.digit_histograms": 1,
+            "launch.onesweep_pass": 8}
+    got = {k: moved.get(k, 0) for k in want}
+    _, perm = torch.sort(segsort.to_signed_order(complement(encode_keys(keys))), stable=True)
+    sort_err = max_abs_err([ok, ov], [keys[perm], id6[perm]])
+    phase("slice", f"sort_pairs n={n} float64 v3 keys + int32 id6, descending, default route: "
+                   f"launches {got}, expected {want}; max_abs_err against a stable torch.sort "
+                   f"{sort_err} [{smi}]")
+    if st["err"] or sort_err:
+        raise AssertionError(f"key_order or the descending float64 sort is wrong: "
+                             f"{st['err']}, {sort_err}")
+    if got != want:
+        raise AssertionError(f"the descending float64 sort did not run its kernels: {got}")
+    return st
+
+
 # --- 11. the distributed sort (parallel/distributed.py) on one card
 
 DIST_P = 8  # logical shards of the card, as the JAX package's 8 CPU devices
@@ -2625,6 +2701,7 @@ def main() -> None:
     carry_or_gather(dev, smi)
     gst = gather_parts(dev, smi)
     err["gather_columns"] = gst["err"]
+    kst = key_order_parts(dev, smi)
 
     # --- 11. the distributed sort on 8 logical shards of the card
     dist_launches, dst = distributed_main_path(dev, rng, smi)
@@ -2738,6 +2815,12 @@ def main() -> None:
          "plain_ms": gst["plain"], "bound_ms": gst["bound"], "bound_by": "bytes",
          "library_ms": gst["library"], "payloads": "lineitem: 4 x int64 + int32, 1e8 rows",
          "ms_by_width_and_columns": {f"{w}x{c}": v for (w, c), v in gst["widths"].items()}},
+        {"name": "key_order", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/keyorder.cu",
+         "replaces": "no TPU kernel: XLA fuses the JAX package's key encoding into its sort; "
+                     "torch's composed transform (common.encode_keys, complement, decode_keys)",
+         "launches": kst["launches"], "max_abs_err": kst["err"], "ms": kst["ms"],
+         "plain_ms": kst["plain"], "bound_ms": kst["bound"], "bound_by": "bytes",
+         "library_ms": kst["library"], "keys": "1e8 float64 v3, descending, both ways"},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

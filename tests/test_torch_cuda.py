@@ -21,6 +21,7 @@ from vkradixsort_tpu_torch.ops import (
     fused,
     gather,
     histogram,
+    keyorder,
     merge,
     radix_tiled,
     reference,
@@ -1140,3 +1141,137 @@ def test_lineitem_sort_counts_one_route_and_one_gather(dev):
 
     ref_k, ref_v = plain.sort_pairs(keys, cols)
     assert plain.mismatched_rows(ok, ov, ref_k, ref_v) == 0
+
+
+# ---------------------------------------------------------------------------
+# the key-order transform: one key_order launch each way, bitwise its plain
+# version (the CPU file tests/test_torch_key_order.py holds the plain version
+# to the composed torch transform)
+
+KEY_ORDER_DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64, torch.uint32,
+                    torch.uint64]
+
+
+def _key_order_keys(dtype, n, seed=5):
+    """Random bit patterns of ``dtype`` on the CPU, led by its edge values:
+    0, 1, -1, the int max and min; for floats +-0.0, +-denormals, +-max,
+    +-inf and NaNs of both signs, quiet, with payload bits and signalling."""
+    size = dtype.itemsize
+    nbits = 8 * size
+    sign, ones = 1 << (nbits - 1), (1 << nbits) - 1
+    if dtype.is_floating_point:
+        mant = {4: 23, 8: 52}[size]
+        exp, quiet = (sign - 1) ^ ((1 << mant) - 1), 1 << (mant - 1)
+        edges = [0, 1, quiet - 1, exp - 1, exp, exp | quiet, exp | quiet | 5, exp | 1]
+        edges += [e | sign for e in edges]
+    else:
+        edges = [0, 1, ones, sign - 1, sign, sign + 1]
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.randint(-(2**62), 2**62, (n,), generator=g, dtype=torch.int64)
+    keys = bits.view(torch.int8)[: n * size].view(dtype).clone()
+    m = min(n, len(edges))
+    common.bits_view(keys)[:m] = torch.tensor([common.signed_bits(e, size) for e in edges[:m]],
+                                              dtype=common.bits_view(keys).dtype)
+    return keys
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", KEY_ORDER_DTYPES, ids=str)
+def test_key_order_kernel_matches_plain(dev, monkeypatch, dtype, descending, n):
+    keys = _key_order_keys(dtype, n + 1)
+    on_card = keys.to(dev)
+    want_enc = keyorder.encode(keys, descending)  # the plain version on the CPU
+    launch = 0 if keyorder.identity(dtype, descending) else 1
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(keyorder, "key_order_plain", refuse)
+    for lo in (0, 1):  # 16-byte aligned, and a slice that is not
+        x = on_card[lo:lo + n]
+        before = launches("key_order")
+        enc = keyorder.encode(x, descending)
+        assert launches("key_order") == before + launch
+        _equal([common.bits_view(enc).cpu()], [common.bits_view(want_enc[lo:lo + n])])
+        dec = keyorder.decode(enc.clone(), dtype, descending)
+        assert launches("key_order") == before + 2 * launch
+        _equal([common.bits_view(dec).cpu()], [common.bits_view(keys[lo:lo + n])])
+        owned = enc.clone()
+        dec = keyorder.decode(owned, dtype, descending, in_place=True)
+        assert dec.data_ptr() == owned.data_ptr()
+        _equal([common.bits_view(dec).cpu()], [common.bits_view(keys[lo:lo + n])])
+
+
+@pytest.mark.parametrize("dtype", KEY_ORDER_DTYPES, ids=str)
+@pytest.mark.parametrize("entry", ["sort_pairs", "sort", "argsort"])
+def test_key_order_launches_per_call(dev, entry, dtype):
+    """One key_order launch each way (argsort returns no keys: one); none
+    for unsigned keys in ascending order; the answer the CPU's."""
+    n = (1 << 20) + 3
+    keys = _key_order_keys(dtype, n, seed=6)
+    vals = torch.arange(n, dtype=torch.int32)
+    calls = {
+        "sort_pairs": lambda k, v, d: vt.sort_pairs(k, v, descending=d),
+        "sort": lambda k, v, d: (vt.sort(k, descending=d),),
+        "argsort": lambda k, v, d: (vt.argsort(k, descending=d),),
+    }
+    for descending in (False, True):
+        torch.cuda.synchronize()
+        before = launches("key_order")
+        got = calls[entry](keys.to(dev), vals.to(dev), descending)
+        torch.cuda.synchronize()
+        ways = 0 if keyorder.identity(dtype, descending) else 1 if entry == "argsort" else 2
+        assert launches("key_order") == before + ways
+        want = calls[entry](keys, vals, descending)
+        _equal([common.bits_view(g).cpu() for g in got], [common.bits_view(w) for w in want])
+
+
+def test_f64_desc_sort_pairs_on_the_default_route(dev):
+    """db-benchmark q8's sort, descending float64 v3 keys carrying an int32
+    id6, at 2^24 + 3 rows on the default route (radix_tiled): one encode and
+    one decode launch around the u64 + 4-byte onesweep, bitwise the CPU's
+    answer."""
+    from sortbench import inputs
+
+    n = (1 << 24) + 3
+    gen = torch.Generator().manual_seed(2**31 + 22)
+    keys = inputs.make_keys(n, {"dtype": "float64", "distribution": "runif_round", "max": 100,
+                                "digits": 6}, "cpu", gen)
+    id6 = inputs.make_column("id6", "int32", n, "cpu", gen)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = profiling.counters()
+        ok, ov = vt.sort_pairs(keys.to(dev), id6.to(dev), descending=True)
+        torch.cuda.synchronize()
+        moved = profiling.since(before)
+        assert moved.get("route.radix_tiled") == 1 and moved.get("launch.key_order") == 2
+        assert moved.get("launch.digit_histograms") == 1 and moved.get("launch.onesweep_pass") == 8
+        assert "launch.gather_columns" not in moved
+    ck, cv = vt.sort_pairs(keys, id6, descending=True)
+    _equal([common.bits_view(ok).cpu(), ov.cpu()], [common.bits_view(ck), cv])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32], ids=str)
+def test_local_mesh_descending_key_order_on_the_card(dev, dtype):
+    """The distributed sort over 4 logical shards of the card, descending,
+    on float and signed keys drawn from 1000 bit patterns (ties, the edge
+    values): one key_order launch a shard each way, and every padded shard,
+    count and flag bitwise the CPU's."""
+    from vkradixsort_tpu_torch.parallel.distributed import LocalMesh, sort_sharded
+
+    n = 4 * 50_001
+    pool = _key_order_keys(dtype, 1000, seed=7)
+    keys = pool[torch.randint(0, 1000, (n,), generator=torch.Generator().manual_seed(8))]
+    vals = torch.arange(n, dtype=torch.int32)
+    out = []
+    for d in ("cpu", dev):
+        torch.cuda.synchronize()
+        before = launches("key_order")
+        res = sort_sharded(keys.to(d), LocalMesh([d] * 4), values=vals.to(d), descending=True)
+        torch.cuda.synchronize()
+        assert launches("key_order") == before + (8 if d == dev else 0)
+        out.append([common.bits_view(s).cpu() for s in res[0]] + [res[1].cpu(), res[2].cpu()]
+                   + [s.cpu() for s in res[3]])
+    assert not bool(out[1][5].any())
+    _equal(out[1], out[0])

@@ -30,7 +30,7 @@ OPS = pathlib.Path(__file__).resolve().parents[1] / "vkradixsort_tpu_torch" / "o
 N = 1000
 WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "digit_histograms",
             "onesweep_pass", "tilesort", "mergepath_level", "sort_fused", "block_pass",
-            "global_group", "gather_payload", "place_runs", "gather_columns")
+            "global_group", "gather_payload", "place_runs", "gather_columns", "key_order")
 
 
 @pytest.fixture(autouse=True, scope="module")

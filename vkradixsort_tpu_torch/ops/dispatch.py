@@ -35,9 +35,16 @@ bitonic or samplesort. Every entry point is stable,
 ``sort_pairs(stable=False)`` too, and bitwise-exact against the JAX
 package's stable results on the same inputs.
 
-Each entry point runs in the span ``vkrs/<entry point>`` and the engine a
-call takes in ``vkrs/engine/<engine>`` (``utils/profiling.span``); each
-call where the dispatcher chose an engine counts one ``route.<engine>``.
+Keys reach the engines in the unsigned order they sort, and go back after
+them, through ``ops/keyorder.py``: for keys of 4 and 8 bytes one
+``key_order`` launch each way on the card, none for unsigned keys in
+ascending order. ``argsort`` decodes nothing: it does not return the keys.
+
+Each entry point runs in the span ``vkrs/<entry point>``, the engine a
+call takes in ``vkrs/engine/<engine>``, and a transform that is not the
+identity in ``vkrs/keys/encode`` and ``vkrs/keys/decode``
+(``utils/profiling.span``); each call where the dispatcher chose an engine
+counts one ``route.<engine>``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from vkradixsort_tpu_torch.engine.config import DEFAULT_CONFIG, SortConfig, rout
 from vkradixsort_tpu_torch.ops import (
     bitonic,
     fused,
+    keyorder,
     merge,
     radix_tiled,
     reference,
@@ -55,13 +63,7 @@ from vkradixsort_tpu_torch.ops import (
     segsort,
     tiled,
 )
-from vkradixsort_tpu_torch.ops.common import (
-    complement,
-    decode_keys,
-    encode_keys,
-    positions,
-    sortable_dtype,
-)
+from vkradixsort_tpu_torch.ops.common import positions, sortable_dtype
 from vkradixsort_tpu_torch.utils import profiling
 
 # Each engine's sort of encoded keys and a payload set, ``(enc, vals, config)
@@ -112,17 +114,33 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = 
 
 
 def _encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
-    enc = encode_keys(keys)
-    return complement(enc) if descending else enc
+    """The keys in the order the engines sort (``keyorder.encode``: one
+    ``key_order`` launch on the card for keys of 4 and 8 bytes), in the span
+    ``vkrs/keys/encode`` where that is not the identity."""
+    if keyorder.identity(keys.dtype, descending):
+        return keys
+    with profiling.span("vkrs/keys/encode"):
+        return keyorder.encode(keys, descending)
 
 
-def _sort_encoded_keys(keys, vals, config, path, descending):
-    enc = _encode(keys, descending)
+def _decode(out_enc: torch.Tensor, dtype: torch.dtype, descending: bool) -> torch.Tensor:
+    """The engine's sorted keys back to ``dtype``, in place (the dispatcher
+    owns them), in the span ``vkrs/keys/decode`` where that is not the
+    identity."""
+    if keyorder.identity(dtype, descending):
+        return out_enc.view(dtype)
+    with profiling.span("vkrs/keys/decode"):
+        return keyorder.decode(out_enc, dtype, descending, in_place=True)
+
+
+def _sort_encoded(enc, vals, config, path):
     with profiling.span("vkrs/engine/" + path):
-        out_k, out_vs = SORTS[path](enc, vals, config)
-    if descending:
-        out_k = complement(out_k)
-    return decode_keys(out_k, keys.dtype), out_vs
+        return SORTS[path](enc, vals, config)
+
+
+def _sort_keys(keys, vals, config, path, descending):
+    out_k, out_vs = _sort_encoded(_encode(keys, descending), vals, config, path)
+    return _decode(out_k, keys.dtype, descending), out_vs
 
 
 def sort(
@@ -149,7 +167,7 @@ def sort(
             raise ValueError(f"sort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
         path = _route(keys, backend)
         profiling.count("route." + path)
-        out, _ = _sort_encoded_keys(keys, (), config, path, descending)
+        out, _ = _sort_keys(keys, (), config, path, descending)
         return out
 
 
@@ -191,7 +209,7 @@ def sort_pairs(
             raise ValueError("keys and values must lie on one device")
         path = _route(keys, backend, vals)
         profiling.count("route." + path)
-        out_k, out_vs = _sort_encoded_keys(keys, vals, config, path, descending)
+        out_k, out_vs = _sort_keys(keys, vals, config, path, descending)
         return out_k, (type(values)(out_vs) if multi else out_vs[0])
 
 
@@ -207,7 +225,8 @@ def argsort(
     Follows ``ROUTE_TABLE["argsort"]`` (``"argsort64"`` for 64-bit keys).
     On "tiled" the answer is ``torch.sort``'s own permutation
     (``tiled.argsort_tiled``); every other engine sorts the keys with their
-    positions as one payload, as ``sort_pairs(keys, arange)``. On merge that
+    positions as one payload, as ``sort_pairs(keys, arange)``, and leaves
+    the sorted keys encoded. On merge that
     is the plane set the JAX package's ``merge.argsort_merge`` moves (key
     planes and positions), so it needs no twin of its own. 2-D keys give
     each row's permutation, from ``torch.sort(dim=1)``.
@@ -226,7 +245,7 @@ def argsort(
             with profiling.span("vkrs/engine/tiled"):
                 return tiled.argsort_tiled(enc)
         idx = positions(keys.shape[0], keys.device)
-        _, (perm,) = _sort_encoded_keys(keys, (idx,), config, path, descending)
+        _, (perm,) = _sort_encoded(_encode(keys, descending), (idx,), config, path)
         return perm
 
 
@@ -246,9 +265,7 @@ def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
         if any(v.shape != keys.shape for v in vals):
             raise ValueError("sort_segments payloads must have the keys' shape")
         out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
-        if descending:
-            out_enc = complement(out_enc)
-        out_k = decode_keys(out_enc, keys.dtype)
+        out_k = _decode(out_enc, keys.dtype, descending)
         if values is None:
             return out_k
         return out_k, (type(values)(out_vs) if multi else out_vs[0])

@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     included, add to the counter ``kernels.load_s``."""
     t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build()))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     ints = ctypes.POINTER(ctypes.c_int)
     planes = [_VOIDP5, _VOIDP5, i32, i32, i64]
     # the arguments between the device (first) and the stream (last)
@@ -123,6 +123,7 @@ def load() -> ctypes.CDLL:
         "bitonic_gather": [ptr, ptr, ptr, i64, i32],
         "placement": [_VOIDP4, _VOIDP4, _U64X4, i32, i32, i32, ptr, ptr, i32, i64, i32, i32],
         "gather_columns": [ptr, i64, i32, _VOIDP8, _VOIDP8, ints],
+        "key_order": [ptr, ptr, i64, i32, u64, u64],
     }
     for name, args in signatures.items():
         fn = getattr(lib, f"vkrs_{name}")

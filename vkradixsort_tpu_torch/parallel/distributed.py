@@ -49,14 +49,11 @@ from __future__ import annotations
 import torch
 
 from vkradixsort_tpu_torch.engine.config import route_for
-from vkradixsort_tpu_torch.ops import merge
+from vkradixsort_tpu_torch.ops import keyorder, merge
 from vkradixsort_tpu_torch.ops.common import (
     _MIN32,
     bits_view,
-    complement,
     composite_searchsorted,
-    decode_keys,
-    encode_keys,
     round_up,
     take,
 )
@@ -350,7 +347,9 @@ def sort_sharded(shards, mesh, values=None, *, slack: float = 2.0, oversample: i
     :func:`sort_distributed` does. Equal keys keep their input order;
     ``descending=True`` reverses the key order by the encoded keys' bit
     complement, ties still in input order. Float keys sort in IEEE total
-    order (``encode_keys``).
+    order. The keys go to that order and back through ``ops/keyorder.py``,
+    as the dispatcher's do: one ``key_order`` launch a shard each way on
+    the card for keys of 4 and 8 bytes, none for unsigned ascending keys.
 
     ``overlap_chunks=K > 1`` splits each shard into K strided chunks and
     exchanges chunk k - 1's buckets while chunk k sorts; ``cap`` is then
@@ -439,9 +438,7 @@ def _sort_1d(shards, mesh, values, *, slack, oversample, descending, overlap_chu
                       torch.zeros(L, dtype=torch.bool, device=dev0), pay)
 
     key_dtype = keys[0].dtype
-    enc = [encode_keys(k) for k in keys]
-    if descending:
-        enc = [complement(e) for e in enc]
+    enc = [keyorder.encode(k, descending) for k in keys]
     enc_dtype = enc[0].dtype
     grain = P * overlap_chunks
     n_local_padded = round_up(n, grain)
@@ -456,8 +453,7 @@ def _sort_1d(shards, mesh, values, *, slack, oversample, descending, overlap_chu
                      local_sort=_idx_sort_merge if eng == "merge" else _idx_sort)
     out_k = []
     for ok, *_ in out:
-        e = from_signed_order(ok, enc_dtype)
-        out_k.append(decode_keys(complement(e) if descending else e, key_dtype))
+        out_k.append(keyorder.decode(from_signed_order(ok, enc_dtype), key_dtype, descending))
     counts = torch.cat([o[1].to(dev0) for o in out])
     overflow = torch.cat([o[2].to(dev0) for o in out])
     out_v = [[o[3][j] for o in out] for j in range(len(pay))]
