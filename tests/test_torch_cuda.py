@@ -718,6 +718,79 @@ def test_onesweep_back_to_back_sorts(dev, dtype):
         _equal([common.bits_view(x) for x in got], [common.bits_view(x) for x in want])
 
 
+# the first pass of a sort of keys with their u32 positions (argsort, a
+# gathered payload set) makes them from each element's index: bitwise the same
+# pass, and the same sort, fed positions(n)
+
+POSITIONS_CASES = ([("uniform", size) for size in ONESWEEP_SIZES + ["2"]]
+                   + [(kind, size) for kind in ("equal", "top", "descending")
+                      for size in ("tile+1", "2^20+3")])
+
+
+@pytest.mark.parametrize("kind,size", POSITIONS_CASES)
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_onesweep_positions_pass_is_the_pass_of_positions(dev, kind, size, dtype):
+    tile = radix_tiled.onesweep_shape(dev.index, np.dtype(dtype).itemsize, 4)["tile"]
+    n = 2 if size == "2" else _onesweep_n(size, tile)
+    rng = np.random.default_rng(n + 4)
+    keys = torch.from_numpy(_onesweep_keys(rng, n, dtype, kind)).to(dev)
+    keys_in = keys.clone()
+    pos = common.positions(n, dev)
+    offsets = histogram.digit_histograms(keys)
+    state = radix_tiled.lookback_state(keys, radix_tiled.POSITIONS)
+    before = launches("onesweep_pass")
+    made = radix_tiled.onesweep_pass(keys, radix_tiled.POSITIONS, 0, offsets[0], state)
+    assert launches("onesweep_pass") == before + 1
+    assert made[1].dtype == torch.uint32
+    fed = radix_tiled.onesweep_pass(keys, pos, 0, offsets[0], state)
+    plain = radix_tiled.onesweep_pass_plain(keys, pos, 0, offsets[0])
+    for want in (fed, plain):
+        _equal([common.bits_view(x) for x in made], [common.bits_view(x) for x in want])
+    c0 = profiling.counters()
+    got = radix_tiled.sort_onesweep(keys, radix_tiled.POSITIONS)
+    moved = profiling.since(c0)
+    assert moved.get("radix.positions_in_pass") == 1
+    assert moved.get("launch.onesweep_pass") == keys.element_size()
+    want = radix_tiled.sort_onesweep(keys, pos)
+    _equal([common.bits_view(x) for x in got], [common.bits_view(x) for x in want])
+    perm = vt.argsort(keys, backend="radix_tiled")
+    _equal([common.bits_view(perm)], [common.bits_view(vt.argsort(keys, backend="tiled"))])
+    _equal([common.bits_view(keys)], [common.bits_view(keys_in)])
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_positions_in_pass_counts_the_sorts_that_make_them(dev, dtype):
+    rng = np.random.default_rng(9)
+    n = 100_003
+    keys = torch.from_numpy(_onesweep_keys(rng, n, dtype, "uniform")).to(dev)
+    cols = _columns(dev, n, (torch.int32, torch.int64, torch.int8), 9)
+    for call, made in ((lambda: vt.argsort(keys, backend="radix_tiled"), 1),
+                       (lambda: vt.sort_pairs(keys, cols, backend="radix_tiled"), 1),
+                       (lambda: vt.sort_pairs(keys, cols[0], backend="radix_tiled"), 0),
+                       (lambda: vt.sort(keys, backend="radix_tiled"), 0)):
+        before = profiling.counters()
+        call()
+        assert profiling.since(before).get("radix.positions_in_pass", 0) == made
+
+
+def test_radix_tiled_argsort_runs_no_arange(dev):
+    # the positions are made by the first pass: torch's arange kernel
+    # (elementwise_kernel_with_index) does not run
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(_onesweep_keys(rng, 3_000_001, np.uint32, "uniform")).to(dev)
+    vt.argsort(keys, backend="radix_tiled")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        perm = vt.argsort(keys, backend="radix_tiled")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("onesweep_kernel" in k for k in names)  # the trace saw the device
+    assert not any("elementwise_kernel_with_index" in k for k in names)
+    _equal([common.bits_view(perm)], [common.bits_view(vt.argsort(keys, backend="tiled"))])
+
+
 @pytest.mark.parametrize("key_dtype,payload", [
     (np.uint32, np.uint32), (np.float32, np.float64), (np.int64, np.int32), (np.uint64, None),
 ])

@@ -92,6 +92,29 @@ def test_argsort_matches_jax(jax_argsort, dtype, backend, descending):
     _eq(perm, want)
 
 
+# the card's onesweep tile of u32 and u64 keys with a u32 payload
+# (Shape<K, 4> in csrc/onesweep.cu): tile + 1 rows leave one row in a last tile
+# of the pass that makes the positions
+ONESWEEP_TILE = {np.uint32: 512 * 15, np.uint64: 512 * 13}
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("size", ["0", "1", "2", "tile+1"])
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_radix_tiled_argsort_at_edge_sizes_matches_jax(dtype, size, descending):
+    # radix_tiled's own argsort: the keys sorted with the u32 positions that
+    # the first onesweep pass makes (one radix.positions_in_pass a sort of
+    # two rows or more)
+    n = ONESWEEP_TILE[dtype] + 1 if size == "tile+1" else int(size)
+    keys = _keys(dtype, n)
+    want = vk.argsort(jnp.asarray(keys), backend="tiled", descending=descending)
+    before = profiling.counters()
+    perm = vt.argsort(torch.from_numpy(keys), backend="radix_tiled", descending=descending)
+    assert profiling.since(before).get("radix.positions_in_pass", 0) == (n > 1)
+    assert perm.dtype == torch.uint32
+    _eq(perm, want)
+
+
 @pytest.mark.parametrize("descending", [False, True])
 @pytest.mark.parametrize("dtype", ARGSORT_DTYPES)
 def test_argsort_2d_matches_jax(jax_argsort, dtype, descending):

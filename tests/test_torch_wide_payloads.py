@@ -101,17 +101,33 @@ def test_wide_sort_pairs_is_the_reference(payloads, key_dtype, kind, descending,
         _same(g, reference.take(c, perm))
 
 
-@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
-def test_lineitem_set_is_the_jax_tiled_sort(key_dtype):
+# the card's onesweep tile of u32 and u64 keys with a u32 payload
+# (Shape<K, 4> in csrc/onesweep.cu): tile + 1 rows leave one row in a last tile
+# of the pass that makes the positions
+ONESWEEP_TILE = {np.uint32: 512 * 15, np.uint64: 512 * 13}
+
+
+@pytest.mark.parametrize("key_dtype,n", [
+    pytest.param(np.uint32, N, id="uint32"),
+    pytest.param(np.uint64, N, id="uint64"),
+    *(pytest.param(d, n, id=f"{np.dtype(d).name}-n{n}")
+      for d in (np.uint32, np.uint64) for n in (0, 1, 2, ONESWEEP_TILE[d] + 1)),
+])
+def test_lineitem_set_is_the_jax_tiled_sort(key_dtype, n):
+    # on radix_tiled the keys ride with the u32 positions that the first
+    # onesweep pass makes (one radix.positions_in_pass), then the gather
     rng = np.random.default_rng(11)
-    keys = rng.integers(0, 64, size=N).astype(key_dtype)  # ties: stability shows
-    cols = [rng.integers(-(2**62), 2**62, size=N, dtype=np.int64) for _ in range(4)]
-    cols.append(rng.integers(-(2**31), 2**31, size=N, dtype=np.int64).astype(np.int32))
+    keys = rng.integers(0, 64, size=n).astype(key_dtype)  # ties: stability shows
+    cols = [rng.integers(-(2**62), 2**62, size=n, dtype=np.int64) for _ in range(4)]
+    cols.append(rng.integers(-(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32))
     jk, jv = vk.sort_pairs(jnp.asarray(keys), tuple(jnp.asarray(c) for c in cols),
                            backend="tiled")
     for backend in (None, "radix_tiled"):
+        before = profiling.counters()
         ok, ov = vt.sort_pairs(torch.from_numpy(keys), tuple(torch.from_numpy(c) for c in cols),
                                backend=backend)
+        made = profiling.since(before).get("radix.positions_in_pass", 0)
+        assert made == (backend == "radix_tiled" and n > 1)
         np.testing.assert_array_equal(ok.numpy(), np.asarray(jk))
         for o, j in zip(ov, jv):
             np.testing.assert_array_equal(o.numpy(), np.asarray(j))

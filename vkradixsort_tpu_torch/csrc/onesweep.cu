@@ -37,7 +37,12 @@
 //     each digit's run to consecutive addresses;
 //   - a tile is kThreads x kPer elements a block, sized so that two blocks
 //     share an SM (registers and shared memory), so one block's loads and
-//     stores overlap the other's rank and look-back (PERF.md has the sweep).
+//     stores overlap the other's rank and look-back (PERF.md has the sweep);
+//   - a sort of keys with their u32 row positions (an argsort, or keys whose
+//     payload set is gathered after the sort) runs its first pass as the
+//     positions instance (vkrs_onesweep_positions_pass), which makes each
+//     element's position from its index where the others read a payload, so
+//     the positions are never written out before the sort nor read by it.
 //
 // Look-back words (32 bits, one a tile and digit, zeroed before each pass):
 // 0 not yet published; count + 1 (below 2^31) the tile's count; kInclusive
@@ -192,8 +197,10 @@ __global__ void __launch_bounds__(kHistThreads)
 // One stable pass over the digit (key >> shift) & 255: block b takes tile t
 // (from next_tile), elements [t * kTile, (t + 1) * kTile), and writes element
 // i of it to offset[d] + (digit d in tiles before t) + (digit d before i in
-// tile t). status: [tiles, 256] look-back words, zeroed.
-template <typename K, int VB>
+// tile t). status: [tiles, 256] look-back words, zeroed. kPositions (VB 4
+// only): element g's payload is g, its u32 row position, made here and not
+// read (vals unused).
+template <typename K, int VB, bool kPositions = false>
 __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBlocks)
     onesweep_kernel(const K* __restrict__ keys, const Payload<VB == 0 ? 1 : VB>* __restrict__ vals,
                     long long n, int shift, const int* __restrict__ offset, unsigned* status,
@@ -201,6 +208,7 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
                     Payload<VB == 0 ? 1 : VB>* __restrict__ out_vals) {
   using S = Shape<K, VB>;
   using V = Payload<VB == 0 ? 1 : VB>;
+  static_assert(!kPositions || VB == 4, "positions are u32");
   constexpr int kPer = S::kPer;
   __shared__ int base[kBins];  // digit d's first global slot, less its first slot in the tile
   __shared__ int warp_sum[kBins / 32];
@@ -232,7 +240,9 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
   for (int s = 0; s < kPer; ++s) {
     const int i = mine + 32 * s;
     key[s] = i < valid ? keys[g0 + i] : K(0);
-    if constexpr (VB != 0) {
+    if constexpr (kPositions) {
+      val[s] = static_cast<V>(g0 + i);  // below n < 2^31
+    } else if constexpr (VB != 0) {
       val[s] = i < valid ? vals[g0 + i] : V(0);
     } else {
       val[s] = V(0);
@@ -310,10 +320,33 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
   }
 }
 
-template <typename K, int VB>
+template <typename K, int VB, bool kPositions = false>
 cudaError_t set_stage(void) {
-  return cudaFuncSetAttribute(onesweep_kernel<K, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(onesweep_kernel<K, VB, kPositions>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Shape<K, VB>::kSmemBytes);
+}
+
+// Zeroes the look-back words and tile counter and launches one pass of the
+// instance onesweep_kernel<K, VB, kPositions> on stream s.
+template <typename K, int VB, bool kPositions>
+cudaError_t launch_pass(const void* keys, const void* vals, long long n, int shift,
+                        const void* offset, void* lookback, void* out_keys, void* out_vals,
+                        cudaStream_t s) {
+  using S = Shape<K, VB>;
+  using V = Payload<VB == 0 ? 1 : VB>;
+  const long long tiles = (n + S::kTile - 1) / S::kTile;
+  cudaError_t e = set_stage<K, VB, kPositions>();
+  if (e != cudaSuccess) return e;
+  e = cudaMemsetAsync(lookback, 0, (tiles * kBins + 1) * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  unsigned* status = static_cast<unsigned*>(lookback);
+  const unsigned blocks = static_cast<unsigned>(tiles);
+  onesweep_kernel<K, VB, kPositions><<<blocks, S::kThreads, S::kSmemBytes, s>>>(
+      static_cast<const K*>(keys), static_cast<const V*>(vals), n, shift,
+      static_cast<const int*>(offset), status, reinterpret_cast<int*>(status + tiles * kBins),
+      static_cast<K*>(out_keys), static_cast<V*>(out_vals));
+  return cudaGetLastError();
 }
 
 // Calls f(K(), std::integral_constant<int, VB>()) for the kernel instance of
@@ -408,23 +441,32 @@ extern "C" int vkrs_onesweep_pass(int device, const void* keys, int key_bytes, c
                                   void* lookback, void* out_keys, void* out_vals, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(vkrs::by_widths(key_bytes, val_bytes, [&](auto k, auto vb) {
-    using K = decltype(k);
-    constexpr int VB = decltype(vb)::value;
-    using S = vkrs::Shape<K, VB>;
-    using V = vkrs::Payload<VB == 0 ? 1 : VB>;
-    const long long tiles = (n + S::kTile - 1) / S::kTile;
-    cudaError_t e = vkrs::set_stage<K, VB>();
-    if (e != cudaSuccess) return e;
-    e = cudaMemsetAsync(lookback, 0, (tiles * vkrs::kBins + 1) * sizeof(unsigned), s);
-    if (e != cudaSuccess) return e;
-    unsigned* status = static_cast<unsigned*>(lookback);
-    vkrs::onesweep_kernel<K, VB><<<static_cast<unsigned>(tiles), S::kThreads, S::kSmemBytes, s>>>(
-        static_cast<const K*>(keys), static_cast<const V*>(vals), n, shift,
-        static_cast<const int*>(offset), status,
-        reinterpret_cast<int*>(status + tiles * vkrs::kBins), static_cast<K*>(out_keys),
-        static_cast<V*>(out_vals));
-    return cudaGetLastError();
+    return vkrs::launch_pass<decltype(k), decltype(vb)::value, false>(
+        keys, vals, n, shift, offset, lookback, out_keys, out_vals,
+        static_cast<cudaStream_t>(stream));
   }));
+}
+
+// vkrs_onesweep_pass with the u32 row positions as the payload, made by the
+// pass (out_positions[slot of key i] = i) instead of read: the first pass of
+// a sort of keys with their positions. The shape and the look-back words are
+// those of val_bytes 4. n >= 1 and n < 2^31, so a position fits a u32.
+extern "C" int vkrs_onesweep_positions_pass(int device, const void* keys, int key_bytes,
+                                            long long n, int shift, const void* offset,
+                                            void* lookback, void* out_keys, void* out_positions,
+                                            void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key_bytes == 4) {
+    return static_cast<int>(vkrs::launch_pass<unsigned, 4, true>(
+        keys, nullptr, n, shift, offset, lookback, out_keys, out_positions, s));
+  }
+  if (key_bytes == 8) {
+    return static_cast<int>(vkrs::launch_pass<unsigned long long, 4, true>(
+        keys, nullptr, n, shift, offset, lookback, out_keys, out_positions, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,9 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
                  every pass's digits, then per pass one kernel that ranks,
                  looks back for its tiles' bases and moves keys and
                  payload; any set of 1-, 2-, 4- and 8-byte payloads (one
-                 rides the passes; a wider set rides as u32 positions, then
-                 one gather kernel moves every column, ops/gather.py),
+                 rides the passes; a wider set rides as u32 positions,
+                 made by the first pass, then one gather kernel moves every
+                 column, ops/gather.py), and argsort on the same positions,
                  n < 2^31
   "fused"        the whole LSD radix sort in one launch of one block
                  (ops/fused.py); N <= ``SortConfig.fused_max_n``, at most
@@ -78,6 +79,9 @@ SORTS = {
     "samplesort": samplesort.sort_encoded,
 }
 ENGINES = tuple(SORTS)
+# The engines with an argsort of their own, ``enc -> permutation``; the
+# others sort the keys carrying their positions as one payload.
+ARGSORTS = {"tiled": tiled.argsort_tiled, "radix_tiled": radix_tiled.argsort_radix_tiled}
 
 
 def _table_op(op: str, vals: tuple, wide: bool) -> str:
@@ -223,13 +227,15 @@ def argsort(
     """Stable argsort indices (uint32 for N < 2^32, else uint64).
 
     Follows ``ROUTE_TABLE["argsort"]`` (``"argsort64"`` for 64-bit keys).
-    On "tiled" the answer is ``torch.sort``'s own permutation
-    (``tiled.argsort_tiled``); every other engine sorts the keys with their
-    positions as one payload, as ``sort_pairs(keys, arange)``, and leaves
-    the sorted keys encoded. On merge that
-    is the plane set the JAX package's ``merge.argsort_merge`` moves (key
-    planes and positions), so it needs no twin of its own. 2-D keys give
-    each row's permutation, from ``torch.sort(dim=1)``.
+    An engine in :data:`ARGSORTS` gives the permutation itself: on "tiled"
+    ``torch.sort``'s own (``tiled.argsort_tiled``), on "radix_tiled" the
+    onesweep sort of the keys with the u32 positions its first pass makes
+    (``radix_tiled.argsort_radix_tiled``: no positions tensor). Every other
+    engine sorts the keys with their positions (``common.positions``) as
+    one payload, and leaves the sorted keys encoded. On merge that is the
+    plane set the JAX package's ``merge.argsort_merge`` moves (key planes
+    and positions), so it needs no twin of its own. 2-D keys give each
+    row's permutation, from ``torch.sort(dim=1)``.
     """
     with profiling.span("vkrs/argsort"):
         if keys.dim() == 2:
@@ -240,12 +246,11 @@ def argsort(
             raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
         path = _route(keys, backend, op="argsort")
         profiling.count("route." + path)
-        if path == "tiled":
-            enc = _encode(keys, descending)
-            with profiling.span("vkrs/engine/tiled"):
-                return tiled.argsort_tiled(enc)
-        idx = positions(keys.shape[0], keys.device)
-        _, (perm,) = _sort_encoded(_encode(keys, descending), (idx,), config, path)
+        enc = _encode(keys, descending)
+        if path in ARGSORTS:
+            with profiling.span("vkrs/engine/" + path):
+                return ARGSORTS[path](enc)
+        _, (perm,) = _sort_encoded(enc, (positions(keys.shape[0], keys.device),), config, path)
         return perm
 
 

@@ -31,7 +31,10 @@ pipeline takes n < 2^31 (``accepts``).
 payload: one payload that fits a 512-thread pass with its key rides the
 passes; any other set rides as u32 positions, and ``gather.gather_columns``
 (kernel ``csrc/gather.cu``) moves every payload through the sorted positions
-in one launch.
+in one launch. ``argsort_radix_tiled`` is the engine's argsort: the keys
+sorted with their u32 positions. Where a sort carries its positions
+(``POSITIONS``), the first pass makes them from each element's index and
+the later passes carry them, so no positions tensor is built or read.
 """
 
 from __future__ import annotations
@@ -231,17 +234,38 @@ def onesweep_shape(device_index: int, key_bytes: int, val_bytes: int) -> dict:
     return dict(zip(("threads", "per_thread", "tile", "blocks_per_sm"), shape))
 
 
+class _Positions:
+    """The type of :data:`POSITIONS`."""
+
+    def __repr__(self) -> str:
+        return "radix_tiled.POSITIONS"
+
+
+# A payload that is no tensor: the u32 row positions 0..n-1 (n < 2^31), which
+# onesweep_pass makes from each element's index instead of reading them
+# (``vkrs_onesweep_positions_pass``). sort_onesweep takes it for ``values``:
+# its first pass makes the positions, the later ones carry them.
+POSITIONS = _Positions()
+
+
+def _width(values) -> int:
+    """The payload bytes an element of ``values`` (None, a tensor or
+    :data:`POSITIONS`)."""
+    if values is POSITIONS:
+        return 4
+    return 0 if values is None else values.element_size()
+
+
 def _lookback_words(enc: torch.Tensor, values) -> int:
-    width = 0 if values is None else values.element_size()
-    tile = onesweep_shape(enc.device.index, enc.element_size(), width)["tile"]
+    tile = onesweep_shape(enc.device.index, enc.element_size(), _width(values))["tile"]
     return cdiv(enc.shape[0], tile) * NUM_BINS + 1
 
 
 def lookback_state(enc: torch.Tensor, values) -> torch.Tensor:
     """The onesweep passes' look-back words and tile counter for these keys
-    and ``values`` (or None) on their CUDA device: int32, one word a tile and
-    digit and one more, uninitialized (each pass zeroes them). One state
-    serves every pass of a sort."""
+    and ``values`` (None, a tensor or :data:`POSITIONS`) on their CUDA
+    device: int32, one word a tile and digit and one more, uninitialized
+    (each pass zeroes them). One state serves every pass of a sort."""
     return torch.empty(_lookback_words(enc, values), dtype=torch.int32, device=enc.device)
 
 
@@ -249,20 +273,26 @@ def onesweep_pass(enc: torch.Tensor, values, shift: int, offset: torch.Tensor, s
     """One stable radix pass of the keys and ``values`` (or None) over the
     digit ``(enc >> shift) & 0xFF``, in one kernel that ranks each tile,
     finds its bases by look-back and moves keys and payload:
-    ``(out_keys, out_values)``. ``offset``: the pass's 256 int32 first
-    slots, a row of :func:`histogram.digit_histograms`; ``state``: the
-    :func:`lookback_state` of these keys and values (allocated when None).
-    The inputs are not modified."""
+    ``(out_keys, out_values)``. ``values`` :data:`POSITIONS` gives the pass
+    of ``positions(n)``, bitwise, the kernel making each position where it
+    would read it: no positions tensor is built or read. ``offset``: the
+    pass's 256 int32 first slots, a row of :func:`histogram.digit_histograms`;
+    ``state``: the :func:`lookback_state` of these keys and values
+    (allocated when None). The inputs are not modified."""
     _check_input(enc, shift, 1)
-    _check_move(enc, values)
+    made = values is POSITIONS
+    if not made:
+        _check_move(enc, values)
     if offset.dtype != torch.int32 or tuple(offset.shape) != (NUM_BINS,):
         raise ValueError(f"offset must be [{NUM_BINS}] int32, got {offset.dtype} "
                          f"{tuple(offset.shape)}")
+    n = enc.shape[0]
     if enc.device.type == "cpu":
-        return onesweep_pass_plain(enc, values, shift, offset)
+        return onesweep_pass_plain(enc, positions(n, enc.device) if made else values, shift,
+                                   offset)
     if enc.device.type != "cuda":
         raise ValueError(f"the radix kernels run on CUDA tensors, got {enc.device}")
-    if not enc.is_contiguous() or (values is not None and not values.is_contiguous()):
+    if not enc.is_contiguous() or not (values is None or made or values.is_contiguous()):
         raise ValueError("the onesweep kernel takes contiguous keys and values")
     if offset.device != enc.device or not offset.is_contiguous():
         raise ValueError("offset must be contiguous and on the keys' device")
@@ -271,15 +301,21 @@ def onesweep_pass(enc: torch.Tensor, values, shift: int, offset: torch.Tensor, s
     elif (state.dtype != torch.int32 or state.device != enc.device
           or state.numel() != _lookback_words(enc, values)):
         raise ValueError("state must be the lookback_state of these keys and values")
-    n = enc.shape[0]
     out_k = torch.empty_like(enc)
-    out_v = None if values is None else torch.empty_like(values)
+    if made:
+        out_v = torch.empty(n, dtype=torch.uint32, device=enc.device)
+    else:
+        out_v = None if values is None else torch.empty_like(values)
     if n:
-        kernels.call("onesweep_pass", enc.device, enc.data_ptr(), enc.element_size(),
-                     0 if values is None else values.data_ptr(),
-                     0 if values is None else values.element_size(), n, shift,
-                     offset.data_ptr(), state.data_ptr(), out_k.data_ptr(),
-                     0 if out_v is None else out_v.data_ptr())
+        if made:
+            kernels.call("onesweep_positions_pass", enc.device, enc.data_ptr(),
+                         enc.element_size(), n, shift, offset.data_ptr(), state.data_ptr(),
+                         out_k.data_ptr(), out_v.data_ptr())
+        else:
+            kernels.call("onesweep_pass", enc.device, enc.data_ptr(), enc.element_size(),
+                         0 if values is None else values.data_ptr(), _width(values), n, shift,
+                         offset.data_ptr(), state.data_ptr(), out_k.data_ptr(),
+                         0 if out_v is None else out_v.data_ptr())
         profiling.count("launch.onesweep_pass")
     return out_k, out_v
 
@@ -289,8 +325,14 @@ def sort_onesweep(enc: torch.Tensor, values=None):
     payload (or None), as the card runs it: the digits of every pass counted
     and scanned once (span ``vkrs/radix/histogram``), then one onesweep
     pass a digit (``vkrs/radix/scatter``), 4 for u32 and 8 for u64, all on
-    one look-back state. On CPU tensors the plain versions. Returns
-    ``(sorted_keys, sorted_values)``; the inputs are not modified."""
+    one look-back state. ``values`` :data:`POSITIONS` sorts the keys with
+    their u32 row positions, which the first pass makes and the later ones
+    carry (it counts one ``radix.positions_in_pass``): the permutation, and
+    no positions tensor before it. On CPU tensors the plain versions.
+    Returns ``(sorted_keys, sorted_values)``; the inputs are not
+    modified."""
+    if values is POSITIONS:
+        profiling.count("radix.positions_in_pass")
     with profiling.span("vkrs/radix/histogram"):
         offsets = histogram.digit_histograms(enc)
     state = None if enc.device.type == "cpu" else lookback_state(enc, values)
@@ -314,7 +356,8 @@ def sort_radix_tiled(enc: torch.Tensor, values=None):
     or 8 bytes an element and the keys' length. No payload, or one that with
     the key spans at most :data:`CARRY_MAX_BYTES`, rides the passes; any
     other set is moved after them: the keys are sorted carrying their u32
-    positions, and ``gather.gather_columns`` moves every payload through
+    positions, which the first pass makes (:data:`POSITIONS`), and
+    ``gather.gather_columns`` moves every payload through
     the sorted positions (span ``vkrs/radix/gather``; on a CPU tensor the
     plain indexing). Returns ``(sorted_keys, sorted_values)``, the values as
     they were passed (None, a tensor or a tuple); the inputs are not
@@ -329,7 +372,7 @@ def sort_radix_tiled(enc: torch.Tensor, values=None):
     if enc.shape[0] <= 1:
         out_k, out_vs = enc.clone(), tuple(v.clone() for v in vals)
     elif len(vals) > 1 or (vals and not carries(enc, vals[0])):
-        out_k, perm = sort_onesweep(enc, positions(enc.shape[0], enc.device))
+        out_k, perm = sort_onesweep(enc, POSITIONS)
         with profiling.span("vkrs/radix/gather"):
             out_vs = gather.gather_columns(perm, vals)
     else:
@@ -338,3 +381,15 @@ def sort_radix_tiled(enc: torch.Tensor, values=None):
     if multi:
         return out_k, out_vs
     return out_k, out_vs[0] if out_vs else None
+
+
+def argsort_radix_tiled(enc: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of uint32/uint64 encoded keys, n < 2^31: the uint32
+    permutation of ``sort_onesweep(enc, POSITIONS)``, whose first pass makes
+    the positions, so no positions tensor is built or read; the sorted keys
+    are dropped. The keys are not modified."""
+    _check_input(enc, 0, 1)
+    enc = enc.contiguous()
+    if enc.shape[0] <= 1:
+        return positions(enc.shape[0], enc.device)
+    return sort_onesweep(enc, POSITIONS)[1]
