@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase; the JSON lines last
     python3 chip_smoke.py --routes   # the route measurements alone
+    python3 chip_smoke.py --rows     # the row sorts' crossovers alone
 
 Drives the port's main paths through the public entry points, in phases,
 one line each: the stable u32 key-value sort
@@ -129,6 +130,20 @@ package's bench checks its 1e8 sort.
      default route: its launches (2 ``key_order``, 1 digit histogram, 8
      onesweep passes) and its answer bitwise a stable ``torch.sort`` of the
      keys' descending order;
+ 10e. the row sorts' crossovers behind ``ROUTE_TABLE["rows"]`` and
+     ``["rows64"]`` (``rows_crossovers``, under ``--rows`` and ``--routes``
+     alone): widths 2^11 to 2^21, 4,871, 5,792, 6,889 and 129,280, rows x
+     width near 2^27, u32 keys uniform and normal, u64 keys uniform, normal
+     and Zipf(1.3), keys, kv and argsort, "tiled" against "radix_tiled" in
+     turns;
+ 10f. the top-p sampler's row sort (``rows_main_path``): ``sort_pairs`` of
+     1024 x 129,280 float32 logits with int32 token ids, and 2-D
+     ``argsort`` of them, on their default route: 1 row histogram and 4 row
+     passes a call, ``radix.rows`` 1, ``route.radix_tiled`` 1, each answer
+     bitwise the library's (``torch.sort(dim=1)`` and the gather); then the
+     row histogram and each row pass bitwise against their plain versions
+     on the call's own keys, timed beside their bounds, their plain
+     versions and the library's yardsticks;
  11. the distributed sort: ``sort_sharded`` over ``LocalMesh([cuda:0] *
      8)`` at 1e8 stable u32 kv, overlap_chunks 1 and 2, local engine "xla"
      and "merge", each exact on the device with no overflow, balance <=
@@ -187,10 +202,11 @@ package's bench checks its 1e8 sort.
      value beside N over phase 5's radix_tiled sort.
 
 With ``--routes`` it runs only the measurements behind the ROUTE_TABLE rows
-(phase 10c, ``route_crossovers`` of phase 10, ``dist_local_crossovers`` of
-phase 11, ``radix_passes_u64`` of phase 12, the onesweep's parts on u64 keys
-included), for repeated runs, and prints no JSON
-line. Any failure raises and exits non-zero. The second-to-last line is a JSON
+(phase 10c, ``route_crossovers`` of phase 10, ``rows_crossovers`` of phase
+10e, ``dist_local_crossovers`` of phase 11, ``radix_passes_u64`` of phase
+12, the onesweep's parts on u64 keys included), for repeated runs, and
+prints no JSON line; with ``--rows`` only phase 10e, the row sorts' sweep
+behind the ``rows`` and ``rows64`` rows. Any failure raises and exits non-zero. The second-to-last line is a JSON
 object describing each kernel: its launches on its main path, its largest
 error against its plain version, its time, its plain version's time, the
 least time the card could take (``bound_ms``: the larger of the bytes moved
@@ -214,7 +230,10 @@ lineitem sort on its default route, its ms from the lineitem set at 1e8
 through a random permutation, and adds its ms by width and column count;
 the key_order entry (no TPU kernel: XLA fuses the JAX package's key
 encoding into its sort) takes its launches from phase 10d's descending
-float64 sort, its ms both ways on its keys. The last is the run's JSON
+float64 sort, its ms both ways on its keys; the digit_histograms_rows and
+onesweep_rows_pass entries take their launches, errors and times from
+phase 10f, the passes' library time being the whole row sort by
+``torch.sort(dim=1)`` with the gather. The last is the run's JSON
 result. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -283,7 +302,8 @@ LAUNCH = {"tilesort": "tilesort", "mergepath": "mergepath_level", "histogram": "
           "radix_scatter": "tile_scatter", "radix_dest": "tile_destinations",
           "digit_histograms": "digit_histograms", "onesweep": "onesweep_pass",
           "fused": "sort_fused", "placement": "place_runs", "gather_columns": "gather_columns",
-          "key_order": "key_order"}
+          "key_order": "key_order", "digit_histograms_rows": "digit_histograms_rows",
+          "onesweep_rows": "onesweep_rows_pass"}
 
 
 def launches_since(before: dict, *kernels_: str) -> dict:
@@ -2560,6 +2580,169 @@ def bench_twin(dev, radix_ms: list, smi: str) -> dict:
     return {"line": line, "launches": launches}
 
 
+# --- 10e. the row sorts of 2-D keys: ROUTE_TABLE's rows and rows64
+
+ROW_WIDTHS = sorted([1 << k for k in range(11, 22)] + [4871, 5792, 6889, 129280])
+ROW_ELEMENTS = 1 << 27  # rows x width of each case (1024 rows at 129280)
+ROWS_MAIN = (1024, 129280)  # a decode step's float32 logits over DeepSeek-V3's vocabulary
+
+
+def row_keys(dev, rows: int, width: int, dtype, law: str, seed: int, zipf=None) -> torch.Tensor:
+    """``[rows, width]`` encoded keys: "uniform" random bits; "normal", a
+    seeded normal law's float32 (u32) or float64 (u64) values through the
+    key-order transform (the sampler's logits); or "zipf", the first rows x
+    width of ``zipf`` (u64 Zipf(1.3) keys, BASELINE.json config 4)."""
+    if law == "zipf":
+        return zipf[:rows * width].view(rows, width)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if law == "normal":
+        x = torch.randn(rows, width, device=dev, generator=gen,
+                        dtype=torch.float32 if dtype == torch.uint32 else torch.float64)
+        return keyorder.encode(x, False)
+    bits = torch.int32 if dtype == torch.uint32 else torch.int64
+    return torch.empty(rows, width, dtype=bits, device=dev).random_(
+        torch.iinfo(bits).min, None, generator=gen).view(dtype)
+
+
+def rows_crossovers(dev, smi: str, widths=ROW_WIDTHS) -> dict:
+    """The crossovers behind ROUTE_TABLE's rows and rows64: at each row width
+    of ``widths`` (rows x width near 2^27; 1024 rows at 129280), u32 keys,
+    uniform and of a normal law, and u64 keys, those two and Zipf(1.3) (the
+    64-bit rows' rule asks for uniform and Zipf keys alike), keys alone
+    ("keys"), with a 4-byte payload ("kv") and their row argsort
+    ("argsort"), on "tiled" (``torch.sort(dim=1)``, then a gather) and
+    "radix_tiled" (the row onesweep), in turns. Prints each with the engine
+    that won every turn and the engine the table picks. Returns {(row, case,
+    law, width): {engine: [ms...]}}."""
+    out = {}
+    zipf = torch.from_numpy(make_keys(np.random.default_rng(SEED + 70), ROW_ELEMENTS, np.uint64,
+                                      "zipf")).to(dev)
+    laws = {torch.uint32: ("uniform", "normal"), torch.uint64: ("uniform", "normal", "zipf")}
+    for width in widths:
+        rows = 1024 if width == 129280 else ROW_ELEMENTS // width
+        gen = torch.Generator(device=dev).manual_seed(SEED + 98)
+        vals = torch.empty(rows, width, dtype=torch.int32, device=dev).random_(
+            -(2**31), None, generator=gen)
+        cases = {
+            "keys": {"tiled": lambda k: segsort.sort_segments(k, ()),
+                     "radix_tiled": lambda k: radix_tiled.sort_rows(k)},
+            "kv": {"tiled": lambda k: segsort.sort_segments(k, (vals,)),
+                   "radix_tiled": lambda k: radix_tiled.sort_rows(k, vals)},
+            "argsort": {"tiled": segsort.argsort_segments, "radix_tiled": radix_tiled.argsort_rows},
+        }
+        for dtype, row in ((torch.uint32, "rows"), (torch.uint64, "rows64")):
+            for law in laws[dtype]:
+                keys = row_keys(dev, rows, width, dtype, law, SEED + 99, zipf)
+                for case, fns in cases.items():
+                    t = turns(fns, keys, fresh=False)
+                    out[(row, case, law, width)] = t
+                    phase("time", f"crossover {row} {case} {law} {rows}x{width}: " + ", ".join(
+                        f"{e} {' / '.join(f'{x:.4f}' for x in v)}" for e, v in t.items())
+                        + f" ms; won every turn: {won_every_turn(t)}; the table routes "
+                          f"{route_for('rows', width, dtype == torch.uint64)} [{smi}]")
+                del keys
+        del vals
+    return out
+
+
+def rows_main_path(dev, smi: str) -> dict:
+    """The sampler's row sort on its main path: ``vt.sort_pairs`` of
+    ``ROWS_MAIN`` float32 logits (a seeded normal law) with int32 token ids,
+    and ``vt.argsort`` of the logits, on their default route, each counted
+    from a counter snapshot (one ``digit_histograms_rows`` and four
+    ``onesweep_rows_pass`` launches, one ``radix.rows``, the route) and
+    bitwise the library's answer (``torch.sort(dim=1)`` of the encoded keys
+    in signed order with the gather, the "tiled" route). Then the kernels on
+    the call's own encoded keys: ``digit_histograms_rows`` bitwise its plain
+    version and each ``onesweep_rows_pass`` bitwise its plain version on the
+    pass's input, each timed beside its plain version and its bound (the
+    histogram reads each key once; a pass reads and writes each key and
+    payload once); the histogram's library yardstick is one ``bincount`` of
+    every pass's row and digit (its index built outside the window), the
+    passes' the library's row sort with the gather. Returns the launches,
+    max_abs_err, times and bounds."""
+    rows, width = ROWS_MAIN
+    n = rows * width
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    logits = torch.randn(rows, width, device=dev, generator=gen)
+    ids = torch.empty(rows, width, dtype=torch.int32, device=dev).random_(
+        -(2**31), None, generator=gen)
+    enc = keyorder.encode(logits, False)
+    lib_k, (lib_v,) = segsort.sort_segments(enc, (ids,))
+    lib_perm = segsort.argsort_segments(enc)
+    want = {"digit_histograms_rows": 1, "onesweep_rows": 4}
+    st = {"launches": {}, "err": 0}
+    for what, call, expect in (
+            ("sort_pairs", lambda: vt.sort_pairs(logits, ids),
+             lambda out: same_bits(out[0], keyorder.decode(lib_k, torch.float32, False))
+             and same_bits(out[1], lib_v)),
+            ("argsort", lambda: vt.argsort(logits), lambda out: same_bits(out, lib_perm))):
+        torch.cuda.synchronize()
+        c0 = profiling.counters()
+        out = call()
+        torch.cuda.synchronize()
+        moved = profiling.since(c0)
+        launches = launches_since(c0, *want)
+        st["launches"][what] = launches
+        phase("slice", f"{what} of {rows}x{width} float32 logits on the default route: route "
+                       f"{[k for k in moved if k.startswith('route.')]}, radix.rows "
+                       f"{moved.get('radix.rows', 0)}, launches {launches} (the table routes "
+                       f"{route_for('rows', width)})")
+        if launches != want or moved.get("radix.rows") != 1 or moved.get("route.radix_tiled") != 1:
+            raise AssertionError(f"{what}: the row sort did not run on its kernels: {moved}")
+        if not expect(out):
+            raise AssertionError(f"{what} of {rows}x{width} logits: the row kernels' answer is "
+                                 "not the library's, bitwise")
+        del out
+    st["call_ms"] = time_ms(lambda: vt.sort_pairs(logits, ids))
+    st["argsort_call_ms"] = time_ms(lambda: vt.argsort(logits))
+    del lib_perm
+
+    offsets = histogram.digit_histograms_rows(enc)
+    st["err"] = max_abs_err([offsets], [histogram.digit_histograms_rows_plain(enc)])
+    st["histogram"] = time_ms(lambda: histogram.digit_histograms_rows(enc))
+    st["histogram_plain"] = time_ms(lambda: histogram.digit_histograms_rows_plain(enc), reps=3)
+    st["histogram_bound"] = bound_ms(4 * n)
+    flat = enc.reshape(-1)
+    row_of = torch.arange(n, device=dev) // width * NUM_BINS
+    composite = torch.cat([(p * rows * NUM_BINS + row_of + extract_digit(flat, 8 * p))
+                           for p in range(4)])
+    del row_of
+    st["histogram_library"] = time_ms(
+        lambda: torch.bincount(composite, minlength=4 * rows * NUM_BINS))
+    del composite
+    tile = radix_tiled.onesweep_shape(dev.index, 4, 4)["tile"]
+    state = radix_tiled.rows_lookback_state(enc, ids)
+    st.update({"pass": [], "pass_plain": [], "pass_bound": bound_ms(2 * 8 * n), "tile": tile})
+    cur_k, cur_v = enc, ids
+    for p in range(4):
+        shift, off = 8 * p, offsets[p]
+        nxt = radix_tiled.onesweep_rows_pass(cur_k, cur_v, shift, off, state)
+        st["err"] = max(st["err"], max_abs_err(
+            list(nxt), list(radix_tiled.onesweep_rows_pass_plain(cur_k, cur_v, shift, off, tile))))
+        st["pass"].append(time_ms(
+            lambda: radix_tiled.onesweep_rows_pass(cur_k, cur_v, shift, off, state)))
+        st["pass_plain"].append(time_ms(
+            lambda: radix_tiled.onesweep_rows_pass_plain(cur_k, cur_v, shift, off, tile), reps=3))
+        cur_k, cur_v = nxt
+    if st["err"] or not (same_bits(cur_k, lib_k) and same_bits(cur_v, lib_v)):
+        raise AssertionError(f"the row kernels disagree with their plain versions or the "
+                             f"library: max_abs_err {st['err']}")
+    st["library"] = time_ms(lambda: segsort.sort_segments(enc, (ids,)))
+    st["sort_rows"] = time_ms(lambda: radix_tiled.sort_rows(enc, ids))
+    phase("time", f"{rows}x{width} u32 kv row sort by kernel: digit_histograms_rows "
+                  f"{st['histogram']:.4f} ms (bound {st['histogram_bound']:.4f}, "
+                  f"{st['histogram_bound'] / st['histogram']:.1%}; plain "
+                  f"{st['histogram_plain']:.3f}; one bincount {st['histogram_library']:.4f}), 4 "
+                  f"passes {' / '.join(f'{x:.4f}' for x in st['pass'])} = {sum(st['pass']):.4f} ms "
+                  f"(bound {4 * st['pass_bound']:.4f}, {4 * st['pass_bound'] / sum(st['pass']):.1%}; "
+                  f"plain {sum(st['pass_plain']):.3f}); sort_rows {st['sort_rows']:.4f} ms, the "
+                  f"library's torch.sort(dim=1) with the gather {st['library']:.4f} ms; public "
+                  f"sort_pairs {st['call_ms']:.4f} ms, argsort {st['argsort_call_ms']:.4f} ms; "
+                  f"tile {tile}; max_abs_err {st['err']}; bitwise the library [{smi}]")
+    return st
+
+
 def routes_only(dev, smi: str) -> None:
     """``--routes``: the measurements behind the ROUTE_TABLE rows alone, for
     repeated runs: the wide payload sets' crossovers, the carry rule and the
@@ -2572,6 +2755,7 @@ def routes_only(dev, smi: str) -> None:
     carry_or_gather(dev, smi)
     gather_parts(dev, smi)
     route_crossovers(dev, zipf, smi)
+    rows_crossovers(dev, smi)
     dist_local_crossovers(dev, smi)
     radix_passes_u64(dev, zipf, "u64 zipf", smi)
     radix_passes_u64(dev, random_u64(dev, N_MAIN, SEED + 93), "u64 uniform", smi)
@@ -2599,6 +2783,9 @@ def main() -> None:
     phase("build", f"{time.perf_counter() - t0:.2f} s -> {lib.name}")
     if sys.argv[1:] == ["--routes"]:
         routes_only(dev, smi)
+        return
+    if sys.argv[1:] == ["--rows"]:
+        rows_crossovers(dev, smi)
         return
     t0 = time.perf_counter()
     so = native.build()  # raises if g++ is missing or fails: no numpy fallback here
@@ -2702,6 +2889,7 @@ def main() -> None:
     gst = gather_parts(dev, smi)
     err["gather_columns"] = gst["err"]
     kst = key_order_parts(dev, smi)
+    rmp = rows_main_path(dev, smi)
 
     # --- 11. the distributed sort on 8 logical shards of the card
     dist_launches, dst = distributed_main_path(dev, rng, smi)
@@ -2821,6 +3009,25 @@ def main() -> None:
          "launches": kst["launches"], "max_abs_err": kst["err"], "ms": kst["ms"],
          "plain_ms": kst["plain"], "bound_ms": kst["bound"], "bound_by": "bytes",
          "library_ms": kst["library"], "keys": "1e8 float64 v3, descending, both ways"},
+        {"name": "digit_histograms_rows", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/onesweep.cu",
+         "replaces": "vkradixsort_tpu/ops/dispatch.py:523 (lax.sort along dimension 1; the "
+                     "row sort's histogram, once a sort)",
+         "launches": rmp["launches"]["sort_pairs"]["digit_histograms_rows"],
+         "argsort_launches": rmp["launches"]["argsort"]["digit_histograms_rows"],
+         "max_abs_err": rmp["err"], "ms": rmp["histogram"], "plain_ms": rmp["histogram_plain"],
+         "bound_ms": rmp["histogram_bound"], "bound_by": "bytes",
+         "library_ms": rmp["histogram_library"], "keys": "1024 x 129280 float32 logits"},
+        {"name": "onesweep_rows_pass", "route": "cuda",
+         "source": "vkradixsort_tpu_torch/csrc/onesweep.cu",
+         "replaces": "vkradixsort_tpu/ops/dispatch.py:523 (lax.sort along dimension 1; the "
+                     "row sort's passes)",
+         "launches": rmp["launches"]["sort_pairs"]["onesweep_rows"],
+         "argsort_launches": rmp["launches"]["argsort"]["onesweep_rows"],
+         "max_abs_err": rmp["err"], "ms": sum(rmp["pass"]), "plain_ms": sum(rmp["pass_plain"]),
+         "bound_ms": 4 * rmp["pass_bound"], "bound_by": "bytes", "library_ms": rmp["library"],
+         "sort_rows_ms": rmp["sort_rows"], "call_ms": rmp["call_ms"],
+         "keys": "1024 x 129280 float32 logits, int32 token ids"},
         {"name": "fused", "route": "cuda", "source": "vkradixsort_tpu_torch/csrc/fused.cu",
          "replaces": "vkradixsort_tpu/ops/fused.py:158", "launches": launches["fused"],
          "max_abs_err": err["fused"], "ms": fst["fused"], "plain_ms": fst["fused_plain"],

@@ -1348,3 +1348,237 @@ def test_local_mesh_descending_key_order_on_the_card(dev, dtype):
                    + [s.cpu() for s in res[3]])
     assert not bool(out[1][5].any())
     _equal(out[1], out[0])
+
+
+# ---------------------------------------------------------------------------
+# the row-segmented onesweep (2-D keys): one digit_histograms_rows a sort, one
+# onesweep_rows_pass a pass, each bitwise its plain version, with rows shorter
+# than a tile, partial last tiles and the sampler's 1024 x 129280; the public
+# 2-D calls on the card bitwise the CPU's path
+
+ROW_SHAPES = ["37x7", "5xtile-1", "3xtile", "4xtile+1", "2x3tile+5", "64x129280"]
+
+
+def _row_shape(shape: str, tile: int) -> tuple:
+    rows, width = shape.split("x")
+    return int(rows), {"7": 7, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+                       "3tile+5": 3 * tile + 5, "129280": 129280}[width]
+
+
+def _row_keys(rng, rows, width, dtype, kind):
+    return _onesweep_keys(rng, rows * width, dtype, kind).reshape(rows, width)
+
+
+def _check_rows(dev, keys_np, payload, rng):
+    """Each row pass of ``keys_np`` ([rows, width]) with a payload of dtype
+    ``payload`` (None, a dtype, or "positions") bitwise its plain version
+    with the kernel's tile on the same input, the row offsets bitwise
+    theirs, the passes' result bitwise ``torch.sort(dim=1)``'s and its
+    gather, the inputs untouched, one histogram and one pass a digit."""
+    keys = torch.from_numpy(keys_np).to(dev)
+    rows, width = keys.shape
+    made = isinstance(payload, str)
+    if made:
+        vals = radix_tiled.POSITIONS
+    else:
+        vals = None if payload is None else _payload(rng, keys.numel(), payload).to(dev)
+        vals = None if vals is None else vals.view(rows, width)
+    keys_in = keys.clone()
+    tile = radix_tiled.onesweep_shape(dev.index, keys.element_size(),
+                                      radix_tiled._width(vals))["tile"]
+    c0 = profiling.counters()
+    offsets = histogram.digit_histograms_rows(keys)
+    _equal([offsets], [histogram.digit_histograms_rows_plain(keys)])
+    state = radix_tiled.rows_lookback_state(keys, vals)
+    cur_k, cur_v = keys, vals
+    plain_v = radix_tiled.row_positions(rows, width, dev) if made else vals
+    for p in range(keys.element_size()):
+        ok, ov = radix_tiled.onesweep_rows_pass(cur_k, cur_v, 8 * p, offsets[p], state)
+        pk, pv = radix_tiled.onesweep_rows_pass_plain(cur_k, plain_v, 8 * p, offsets[p], tile)
+        _equal([common.bits_view(ok)], [common.bits_view(pk)])
+        if pv is None:
+            assert ov is None
+        else:
+            _equal([common.bits_view(ov)], [common.bits_view(pv)])
+        cur_k, cur_v, plain_v = ok, ov, ov
+    moved = profiling.since(c0)
+    assert (moved.get("launch.digit_histograms_rows"),
+            moved.get("launch.onesweep_rows_pass")) == (1, keys.element_size())
+    want_k, want_vs = segsort.sort_segments(keys, () if vals is None or made else (vals,))
+    if made:
+        want_vs = (segsort.argsort_segments(keys),)
+    torch.cuda.synchronize()
+    _equal([common.bits_view(cur_k)], [common.bits_view(want_k)])
+    if want_vs:
+        _equal([common.bits_view(cur_v)], [common.bits_view(want_vs[0])])
+    _equal([common.bits_view(keys)], [common.bits_view(keys_in)])
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("payload", [None, np.uint8, np.int16, np.float32, "positions"],
+                         ids=["keys", "u8", "i16", "f32", "positions"])
+def test_onesweep_rows_match_plain(dev, shape, dtype, payload):
+    width_b = 0 if payload is None else 4 if isinstance(payload, str) else np.dtype(payload).itemsize
+    tile = radix_tiled.onesweep_shape(dev.index, np.dtype(dtype).itemsize, width_b)["tile"]
+    rows, width = _row_shape(shape, tile)
+    rng = np.random.default_rng(rows * width + width_b)
+    _check_rows(dev, _row_keys(rng, rows, width, dtype, "uniform"), payload, rng)
+
+
+@pytest.mark.parametrize("kind", ["equal", "top", "descending"])
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("payload", [np.uint32, "positions"], ids=["u32", "positions"])
+def test_onesweep_rows_on_skewed_keys(dev, kind, dtype, payload):
+    rng = np.random.default_rng(11)
+    _check_rows(dev, _row_keys(rng, 9, 20_003, dtype, kind), payload, rng)
+
+
+def test_onesweep_rows_carry_a_u64_payload_with_u32_keys(dev):
+    rng = np.random.default_rng(12)
+    _check_rows(dev, _row_keys(rng, 7, 30_001, np.uint32, "uniform"), np.uint64, rng)
+
+
+def test_onesweep_rows_at_the_samplers_size(dev):
+    """1024 x 129280 float32 logits of a seeded normal law, encoded, with
+    int32 token ids: every pass bitwise its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(129280)
+    logits = torch.randn(1024, 129280, device=dev, generator=gen)
+    enc = keyorder.encode(logits, False).cpu().numpy()
+    _check_rows(dev, enc, np.int32, np.random.default_rng(13))
+
+
+def _samplers_logits(dev, rows=1024, width=129280, seed=7):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(rows, width, device=dev, generator=gen)
+    ids = torch.empty(rows, width, dtype=torch.int32, device=dev).random_(
+        -(2**31), None, generator=gen)
+    return logits, ids
+
+
+def test_samplers_sort_takes_the_row_kernels_by_default(dev, monkeypatch):
+    """``sort_pairs`` of the sampler's 1024 x 129280 float32 logits with
+    int32 token ids, no backend: route.radix_tiled, radix.rows, one row
+    histogram, 4 row passes and 2 key_order a call, and no 1-D kernel;
+    bitwise the ``torch.sort(dim=1)`` route."""
+    logits, ids = _samplers_logits(dev)
+    names = ("digit_histograms_rows", "onesweep_rows_pass", "key_order", "digit_histograms",
+             "onesweep_pass", "gather_columns")
+    c0 = profiling.counters()
+    got = vt.sort_pairs(logits, ids)
+    moved = profiling.since(c0)
+    assert [moved.get("launch." + w, 0) for w in names] == [1, 4, 2, 0, 0, 0]
+    assert moved.get("route.radix_tiled") == 1 and moved.get("radix.rows") == 1
+    monkeypatch.setitem(vt.engine.config.ROUTE_TABLE, "rows", [(float("inf"), "tiled")])
+    c0 = profiling.counters()
+    want = vt.sort_pairs(logits, ids)
+    assert profiling.since(c0).get("route.tiled") == 1
+    _equal([common.bits_view(x) for x in got], [common.bits_view(x) for x in want])
+    assert bool((got[0][:, 1:] >= got[0][:, :-1]).all())
+
+
+ROW_CALLS = {
+    "sort_pairs": lambda k, v, d: vt.sort_pairs(k, v, descending=d),
+    "sort_pairs_tuple": lambda k, v, d: vt.sort_pairs(k, (v,), descending=d),
+    "sort": lambda k, v, d: vt.sort(k, descending=d),
+    "argsort": lambda k, v, d: vt.argsort(k, descending=d),
+    "sort_segments": lambda k, v, d: vt.sort_segments(k, v, descending=d),
+}
+
+
+def _row_case_keys(rng, rows, width, dtype):
+    """Keys with ties; floats with +-0.0, infinities and NaNs of both signs."""
+    n = rows * width
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
+        keys = (rng.integers(-40, 40, size=n) / 4).astype(dtype)
+        ibits = {4: np.uint32, 8: np.uint64}[dtype.itemsize]
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], dtype=dtype)
+        neg_nan = (special[4:].view(ibits) | ibits(1 << (8 * dtype.itemsize - 1))).view(dtype)
+        special = np.concatenate([special, neg_nan])
+        keys[rng.choice(n, size=min(n, 60), replace=False)] = special[np.arange(min(n, 60)) % 6]
+    else:
+        keys = rng.integers(0, 50, size=n).astype(dtype)
+    return keys.reshape(rows, width)
+
+
+@pytest.mark.parametrize("call", sorted(ROW_CALLS))
+@pytest.mark.parametrize("key_dtype,payload", [(np.float32, np.int32), (np.uint32, np.uint8),
+                                               (np.int64, np.int32), (np.float64, np.int16),
+                                               (np.uint64, np.uint32), (np.int32, np.uint64)])
+@pytest.mark.parametrize("descending", [False, True])
+def test_2d_calls_on_the_card_match_cpu(dev, monkeypatch, call, key_dtype, payload, descending):
+    """The public 2-D calls on the card, every width on the row kernels
+    (the table's rows patched to radix_tiled), bitwise the CPU's path."""
+    for op in ("rows", "rows64"):
+        monkeypatch.setitem(vt.engine.config.ROUTE_TABLE, op, [(float("inf"), "radix_tiled")])
+    rng = np.random.default_rng(21)
+    keys = _row_case_keys(rng, 13, 9_001, key_dtype)
+    vals = _payload(rng, keys.size, payload).reshape(keys.shape)
+    c0 = profiling.counters()
+    got = ROW_CALLS[call](torch.from_numpy(keys).to(dev), vals.to(dev), descending)
+    assert profiling.since(c0).get("route.radix_tiled") == 1
+    want = ROW_CALLS[call](torch.from_numpy(keys), vals, descending)
+    torch.cuda.synchronize()
+    got = list(got) if isinstance(got, tuple) else [got]
+    want = list(want) if isinstance(want, tuple) else [want]
+    flat = [x for g in got for x in (g if isinstance(g, tuple) else (g,))]
+    flat_w = [x for w in want for x in (w if isinstance(w, tuple) else (w,))]
+    _equal([common.bits_view(x).cpu() for x in flat], [common.bits_view(x) for x in flat_w])
+
+
+def test_2d_calls_that_do_not_ride_keep_the_library_sort(dev, monkeypatch):
+    # two payloads, or an 8-byte one on 64-bit keys: torch.sort(dim=1)
+    for op in ("rows", "rows64"):
+        monkeypatch.setitem(vt.engine.config.ROUTE_TABLE, op, [(float("inf"), "radix_tiled")])
+    rng = np.random.default_rng(22)
+    for keys, vals in (((rng.integers(0, 9, (4, 5000)).astype(np.uint32)),
+                        (np.zeros((4, 5000), np.int32), np.ones((4, 5000), np.int32))),
+                       (rng.integers(0, 9, (4, 5000)).astype(np.uint64),
+                        np.arange(20000, dtype=np.int64).reshape(4, 5000))):
+        c0 = profiling.counters()
+        vt.sort_pairs(torch.from_numpy(keys).to(dev),
+                      tuple(torch.from_numpy(v).to(dev) for v in vals) if isinstance(vals, tuple)
+                      else torch.from_numpy(vals).to(dev))
+        moved = profiling.since(c0)
+        assert moved.get("route.tiled") == 1 and not moved.get("launch.onesweep_rows_pass")
+
+
+def test_1d_calls_launch_no_row_kernel(dev):
+    """A 1-D call runs the 1-D kernels as before: one histogram, a pass a
+    digit, and no row kernel; a 2-D call the row kernels alone."""
+    rng = np.random.default_rng(23)
+    keys = torch.from_numpy(rng.integers(0, 2**32, size=(1 << 24) + 3, dtype=np.uint64)
+                            .astype(np.uint32)).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    names = ("digit_histograms", "onesweep_pass", "digit_histograms_rows", "onesweep_rows_pass")
+    for call, want in ((lambda: vt.sort_pairs(keys, vals), [1, 4, 0, 0]),
+                       (lambda: vt.argsort(keys, backend="radix_tiled"), [1, 4, 0, 0]),
+                       (lambda: radix_tiled.sort_rows(keys[:64 * 8192].view(64, 8192)),
+                        [0, 0, 1, 4])):
+        c0 = profiling.counters()
+        call()
+        moved = profiling.since(c0)
+        assert [moved.get("launch." + w, 0) for w in names] == want
+
+
+def test_row_kernel_paths_never_take_the_plain_versions(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(histogram, "digit_histograms_rows_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "onesweep_rows_pass_plain", refuse)
+    monkeypatch.setattr(radix_tiled, "row_positions", refuse)
+    monkeypatch.setattr(reference, "scatter", refuse)
+    monkeypatch.setattr(segsort, "sort_segments", refuse)
+    monkeypatch.setattr(segsort, "argsort_segments", refuse)
+    rng = np.random.default_rng(24)
+    keys = torch.from_numpy(rng.integers(0, 1000, size=(16, 65536), dtype=np.uint32)).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev).view(keys.shape)
+    ok, ov = vt.sort_pairs(keys, vals)
+    perm = vt.argsort(keys)
+    torch.cuda.synchronize()
+    want = np.argsort(keys.cpu().numpy(), axis=1, kind="stable")
+    np.testing.assert_array_equal(perm.cpu().numpy(), want.astype(np.uint32))
+    np.testing.assert_array_equal(ov.cpu().numpy(), want + 65536 * np.arange(16)[:, None])
+    np.testing.assert_array_equal(ok.cpu().numpy(), np.sort(keys.cpu().numpy(), axis=1))

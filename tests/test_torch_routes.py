@@ -220,6 +220,7 @@ ACCEPTS = {
     "kvw": {"tiled", "radix_tiled"},
     "argsort": {"tiled", "merge", "radix_tiled"},
     "dist_local": {"tiled", "merge"},
+    "rows": {"tiled", "radix_tiled"},
 }
 
 
@@ -232,6 +233,40 @@ def test_route_table_rows(op):
     assert {e for _, e in rows} <= ACCEPTS[op.removesuffix("64")]
     # a row that repeats its predecessor's engine would be one row
     assert all(a[1] != b[1] for a, b in zip(rows, rows[1:]))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_2d_calls_follow_the_row_table_by_width(wide):
+    # a CUDA 2-D call reads rows / rows64 at its row width, on each side of
+    # each bound; a payload that does not ride its key (two payloads, or an
+    # 8-byte one on 64-bit keys) and tensors on other devices keep "tiled"
+    from vkradixsort_tpu_torch.ops import dispatch
+
+    rows = ROUTE_TABLE["rows64" if wide else "rows"]
+    dtype = torch.float64 if wide else torch.float32
+    one = (torch.zeros(1, dtype=torch.int32),)
+    for (bound, engine), (_, above) in zip(rows, rows[1:]):
+        for width, want in ((int(bound), engine), (int(bound) + 1, above)):
+            keys = torch.empty((3, width), dtype=dtype, device="meta")
+            assert dispatch._route_rows(_on_cuda(keys), one) == want
+            assert dispatch._route_rows(_on_cuda(keys), one * 2) == "tiled"
+            assert dispatch._route_rows(keys, one) == "tiled"  # not on a CUDA device
+    eight = (torch.zeros(1, dtype=torch.int64),)
+    keys = _on_cuda(torch.empty((3, 1 << 20), dtype=dtype, device="meta"))
+    assert dispatch._route_rows(keys, eight) == ("tiled" if wide else "radix_tiled")
+
+
+def _on_cuda(t):
+    """A stand-in of ``t`` whose device reads as a CUDA device: the router
+    reads only the shape, the dtype and the device's type."""
+    class OnCuda:
+        shape, dtype = t.shape, t.dtype
+        device = torch.device("cuda", 0)
+
+        def numel(self):
+            return t.numel()
+
+    return OnCuda()
 
 
 @pytest.mark.parametrize("nck,wide", [(1, False), (2, True)])

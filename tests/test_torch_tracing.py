@@ -30,7 +30,8 @@ OPS = pathlib.Path(__file__).resolve().parents[1] / "vkradixsort_tpu_torch" / "o
 N = 1000
 WRAPPERS = ("tile_histograms", "tile_destinations", "tile_scatter", "digit_histograms",
             "onesweep_pass", "tilesort", "mergepath_level", "sort_fused", "block_pass",
-            "global_group", "gather_payload", "place_runs", "gather_columns", "key_order")
+            "global_group", "gather_payload", "place_runs", "gather_columns", "key_order",
+            "digit_histograms_rows", "onesweep_rows_pass")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,6 +71,9 @@ CALLS = {
     "argsort_tiled": lambda: vt.argsort(_keys(torch.uint64)),
     "argsort_radix": lambda: vt.argsort(_keys(), backend="radix_tiled"),
     "sort_segments": lambda: vt.sort_segments(_keys().view(10, 100), torch.arange(N).view(10, 100)),
+    "sort_pairs_2d": lambda: vt.sort_pairs(_keys().view(10, 100),
+                                           torch.arange(N, dtype=torch.int32).view(10, 100)),
+    "argsort_2d": lambda: vt.argsort(_keys().view(10, 100)),
     "sort_sharded": lambda: sort_sharded(_keys(n=4 * 256), LocalMesh(["cpu"] * 4)),
 }
 
@@ -151,8 +155,9 @@ def test_tiled_route_sorts_once_and_gathers_each_payload(payloads):
 
 @pytest.mark.parametrize("name,want", [
     ("argsort_tiled", ["vkrs/argsort", "vkrs/engine/tiled", "vkrs/tiled/sort"]),
-    ("sort_2d", ["vkrs/sort", "vkrs/sort_segments"]),
-    ("sort_segments", ["vkrs/sort_segments"]),
+    ("sort_2d", ["vkrs/sort", "vkrs/sort_segments", "vkrs/engine/tiled"]),
+    ("sort_segments", ["vkrs/sort_segments", "vkrs/engine/tiled"]),
+    ("argsort_2d", ["vkrs/argsort", "vkrs/engine/tiled"]),
     ("sort", ["vkrs/sort", "vkrs/engine/tiled", "vkrs/tiled/sort"]),
 ])
 def test_entry_spans(name, want):
@@ -178,9 +183,54 @@ def test_route_counts_one_a_call(name, route, calls):
 
 
 def test_segments_take_no_route():
+    # 2-D keys take no route of the 1-D rows (keys, kv, argsort, ...): they
+    # read the row table by width, and count its engine once a call (on CPU
+    # tensors "tiled")
     before = profiling.counters()
     CALLS["sort_segments"]()
-    assert not any(k.startswith("route.") for k in profiling.since(before))
+    moved = profiling.since(before)
+    assert {k: v for k, v in moved.items() if k.startswith("route.")} == {"route.tiled": 1}
+    assert not moved.get("radix.rows")
+
+
+@pytest.mark.parametrize("name", ["sort_2d", "sort_segments", "sort_pairs_2d", "argsort_2d"])
+@pytest.mark.parametrize("calls", [1, 3])
+def test_2d_calls_count_their_route(name, calls):
+    before = profiling.counters()
+    for _ in range(calls):
+        CALLS[name]()
+    moved = {k: v for k, v in profiling.since(before).items() if k.startswith("route.")}
+    assert moved == {"route.tiled": calls}
+
+
+@pytest.mark.parametrize("name,passes,positions", [("sort_pairs_2d", 4, 0), ("argsort_2d", 4, 1),
+                                                   ("sort_2d", 4, 0)])
+def test_rows_radix_steps_nest_in_the_engine_and_the_call(monkeypatch, name, passes, positions):
+    # a 2-D call the row table sends to radix_tiled (here through the plain
+    # versions): route.radix_tiled and radix.rows once, the row histogram
+    # step once and a scatter step a pass, inside vkrs/engine/radix_tiled
+    from vkradixsort_tpu_torch.ops import dispatch
+
+    monkeypatch.setattr(dispatch, "_route_rows", lambda keys, vals=(): "radix_tiled")
+    before = profiling.counters()
+    spans = _spans(CALLS[name])
+    moved = profiling.since(before)
+    assert moved.get("route.radix_tiled") == 1 and moved.get("radix.rows") == 1
+    assert moved.get("radix.positions_in_pass", 0) == positions
+    names = [s[0] for s in spans]
+    engine = names.index("vkrs/engine/radix_tiled")
+    steps = spans[engine + 1:]
+    assert [s[0] for s in steps] == ["vkrs/radix/histogram"] + ["vkrs/radix/scatter"] * passes
+    assert all(_inside(s, spans[engine]) for s in steps)
+
+
+@pytest.mark.parametrize("dtype,passes", [(torch.uint32, 4), (torch.uint64, 8)])
+def test_sort_rows_counts_once_and_moves_a_pass(dtype, passes):
+    before = profiling.counters()
+    spans = _spans(lambda: radix_tiled.sort_rows(_keys(dtype).view(10, 100),
+                                                 torch.arange(N, dtype=torch.int32).view(10, 100)))
+    assert [s[0] for s in spans] == ["vkrs/radix/histogram"] + ["vkrs/radix/scatter"] * passes
+    assert profiling.since(before) == {"radix.rows": 1}
 
 
 def test_counters_snapshot_and_since():

@@ -44,6 +44,18 @@
 //     element's position from its index where the others read a payload, so
 //     the positions are never written out before the sort nor read by it.
 //
+// The row-segmented kernels sort every row of a [rows, width] array on its
+// own (a batched segment sort, as a top-p sampler sorts each request's
+// logits), where the JAX package ran one lax.sort along dimension 1: one
+// digit_histograms_rows_kernel counts and scans every row's digits of every
+// pass and adds the row's first slot; one onesweep_rows_kernel a pass cuts
+// each row into tiles of its own (the last one partial), so a tile never
+// holds two rows, and its look-back stops at the row's first tile, which
+// publishes the row's offsets as its prefix. Their positions instance makes
+// row-local positions (index - row x width). Each shares its body with its
+// 1-D kernel (count_and_scan_digits, onesweep_tile), which runs it as the
+// case of one row.
+//
 // Look-back words (32 bits, one a tile and digit, zeroed before each pass):
 // 0 not yet published; count + 1 (below 2^31) the tile's count; kInclusive
 // | prefix the sum of the digit over tiles up to this one, the pass's offset
@@ -129,12 +141,17 @@ struct DigitRuns {
   }
 };
 
-// offsets: [passes * 256 + 1] int32, zeroed; counts into [0, passes * 256),
-// the last word counts the blocks done. The last block turns each pass's
-// counts into their exclusive scan.
+// The histogram kernels' body for keys [rows, width] (rows 1 for the 1-D
+// kernel), `parts` blocks a row: this block is part `part` of row `row`,
+// whose keys start at `keys`, and it loads and counts as the other parts do.
+// offsets: [passes][rows][256] int32 and one done count a row after them,
+// zeroed; the row's last block to finish turns each pass's counts of the row
+// into their exclusive scan plus `first`, the row's first output slot.
 template <typename K>
-__global__ void __launch_bounds__(kHistThreads)
-    digit_histograms_kernel(const K* __restrict__ keys, long long n, int* offsets) {
+__device__ __forceinline__ void count_and_scan_digits(const K* __restrict__ keys,
+                                                      long long width, long long rows,
+                                                      long long row, int part, int parts,
+                                                      int first, int* offsets) {
   constexpr int kPasses = sizeof(K);
   constexpr int kVec = 16 / sizeof(K);  // keys a 16-byte load
   __shared__ int h[kPasses * kBins];
@@ -142,15 +159,15 @@ __global__ void __launch_bounds__(kHistThreads)
   __shared__ bool last;
   for (int i = threadIdx.x; i < kPasses * kBins; i += blockDim.x) h[i] = 0;
   __syncthreads();
-  // keys [0, head) before the first 16-byte boundary and the tail after the
-  // last whole vector go to thread 0 of block 0
+  // keys [0, head) of the row before its first 16-byte boundary and the
+  // tail after its last whole vector go to thread 0 of the row's part 0
   const long long skip = (16 - reinterpret_cast<uintptr_t>(keys) % 16) % 16 / sizeof(K);
-  const long long head = min(n, skip);
-  const long long nvec = (n - head) / kVec;
+  const long long head = min(width, skip);
+  const long long nvec = (width - head) / kVec;
   const uint4* body = reinterpret_cast<const uint4*>(keys + head);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long stride = static_cast<long long>(parts) * blockDim.x;
   DigitRuns<K> runs;
-  for (long long v0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; v0 < nvec;
+  for (long long v0 = static_cast<long long>(part) * blockDim.x + threadIdx.x; v0 < nvec;
        v0 += stride * kHistUnroll) {
     uint4 x[kHistUnroll];
 #pragma unroll
@@ -168,44 +185,75 @@ __global__ void __launch_bounds__(kHistThreads)
       for (int e = 0; e < kVec; ++e) runs.add(h, k[e]);
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (part == 0 && threadIdx.x == 0) {
     for (long long i = 0; i < head; ++i) runs.add(h, keys[i]);
-    for (long long i = head + nvec * kVec; i < n; ++i) runs.add(h, keys[i]);
+    for (long long i = head + nvec * kVec; i < width; ++i) runs.add(h, keys[i]);
   }
   runs.flush(h);
   __syncthreads();
   for (int i = threadIdx.x; i < kPasses * kBins; i += blockDim.x) {
-    if (h[i]) atomicAdd(&offsets[i], h[i]);
+    if (h[i]) atomicAdd(&offsets[(i / kBins * rows + row) * kBins + i % kBins], h[i]);
   }
   __threadfence();  // this block's counts are in device memory before it counts itself done
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&offsets[kPasses * kBins], 1) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(&offsets[kPasses * rows * kBins + row], 1) == parts - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   for (int p = 0; p < kPasses; ++p) {
-    int* row = h + p * kBins;
-    if (threadIdx.x < kBins) row[threadIdx.x] = __ldcg(&offsets[p * kBins + threadIdx.x]);
+    int* mine = offsets + (p * rows + row) * kBins;
+    int* sums = h + p * kBins;
+    if (threadIdx.x < kBins) sums[threadIdx.x] = __ldcg(&mine[threadIdx.x]);
     __syncthreads();
     int total;
-    const int start = block_digit_offsets(row, 1, warp_sum, total);
-    if (threadIdx.x < kBins) offsets[p * kBins + threadIdx.x] = start;
+    const int start = block_digit_offsets(sums, 1, warp_sum, total);
+    if (threadIdx.x < kBins) mine[threadIdx.x] = first + start;
     __syncthreads();  // warp_sum is free for the next pass
   }
 }
 
-// One stable pass over the digit (key >> shift) & 255: block b takes tile t
-// (from next_tile), elements [t * kTile, (t + 1) * kTile), and writes element
-// i of it to offset[d] + (digit d in tiles before t) + (digit d before i in
-// tile t). status: [tiles, 256] look-back words, zeroed. kPositions (VB 4
-// only): element g's payload is g, its u32 row position, made here and not
-// read (vals unused).
-template <typename K, int VB, bool kPositions = false>
-__global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBlocks)
-    onesweep_kernel(const K* __restrict__ keys, const Payload<VB == 0 ? 1 : VB>* __restrict__ vals,
-                    long long n, int shift, const int* __restrict__ offset, unsigned* status,
-                    int* next_tile, K* __restrict__ out_keys,
-                    Payload<VB == 0 ? 1 : VB>* __restrict__ out_vals) {
+// offsets: [passes * 256 + 1] int32, zeroed; counts into [0, passes * 256),
+// the last word counts the blocks done. The last block turns each pass's
+// counts into their exclusive scan.
+template <typename K>
+__global__ void __launch_bounds__(kHistThreads)
+    digit_histograms_kernel(const K* __restrict__ keys, long long n, int* offsets) {
+  count_and_scan_digits<K>(keys, n, 1, 0, blockIdx.x, gridDim.x, 0, offsets);
+}
+
+// The row-segmented digit_histograms_kernel: keys [rows, width], `parts`
+// blocks a row (block b takes part b % parts of row b / parts). offsets:
+// [passes][rows][256] int32 and one done count a row after them, zeroed; a
+// row's offsets start at row x width, the row's first output slot.
+template <typename K>
+__global__ void __launch_bounds__(kHistThreads)
+    digit_histograms_rows_kernel(const K* __restrict__ row0, long long rows, long long width,
+                                 int parts, int* offsets) {
+  const long long row = blockIdx.x / parts;
+  const int part = blockIdx.x - static_cast<int>(row) * parts;
+  count_and_scan_digits<K>(row0 + row * width, width, rows, row, part, parts,
+                           static_cast<int>(row * width),  // below rows x width < 2^31
+                           offsets);
+}
+
+// The pass kernels' body: one stable pass over the digit (key >> shift) &
+// 255 of keys [rows, width] (kRows) or of n = width keys in one row. Block b
+// takes tile t (from next_tile): tile t % tiles_per_row of row t /
+// tiles_per_row, whose tiles start at row x width (the last one partial), so
+// no tile holds two rows; it writes element i of the tile to offset[row, d]
+// + (digit d in the row's tiles before it) + (digit d before i in the tile),
+// the look-back stopping at the row's first tile, which publishes its
+// inclusive prefix at once. offset: [rows, 256], the pass's slab of the
+// digit histograms. status: [tiles, 256] look-back words, zeroed.
+// kPositions (VB 4 only): an element's payload is its u32 position in its
+// row, made here and not read (vals unused).
+template <typename K, int VB, bool kPositions, bool kRows>
+__device__ __forceinline__ void onesweep_tile(const K* __restrict__ keys,
+                                              const Payload<VB == 0 ? 1 : VB>* __restrict__ vals,
+                                              long long width, int tiles_per_row, int shift,
+                                              const int* __restrict__ offset, unsigned* status,
+                                              int* next_tile, K* __restrict__ out_keys,
+                                              Payload<VB == 0 ? 1 : VB>* __restrict__ out_vals) {
   using S = Shape<K, VB>;
   using V = Payload<VB == 0 ? 1 : VB>;
   static_assert(!kPositions || VB == 4, "positions are u32");
@@ -229,8 +277,18 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
   if (threadIdx.x == 0) tile_id = atomicAdd(next_tile, 1);
   __syncthreads();
   const int t = tile_id;
-  const long long g0 = static_cast<long long>(t) * S::kTile;
-  const int valid = static_cast<int>(min(static_cast<long long>(S::kTile), n - g0));
+  int in_row = t;
+  long long g0 = 0;  // the row's first element
+  if constexpr (kRows) {
+    const int row = t / tiles_per_row;
+    in_row = t - row * tiles_per_row;
+    g0 = row * width;
+    offset += static_cast<size_t>(row) * kBins;  // the row's first slots
+  }
+  const long long p0 = static_cast<long long>(in_row) * S::kTile;  // the tile's place in its row
+  g0 += p0;
+  const int valid = static_cast<int>(min(static_cast<long long>(S::kTile), width - p0));
+  const bool first = in_row == 0;  // the row's first tile
 
   // 1. load: warp w owns elements [32 kPer w, 32 kPer (w + 1)), a lane its
   //    place in each 32-element strip, so each warp load reads whole lines
@@ -241,7 +299,7 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
     const int i = mine + 32 * s;
     key[s] = i < valid ? keys[g0 + i] : K(0);
     if constexpr (kPositions) {
-      val[s] = static_cast<V>(g0 + i);  // below n < 2^31
+      val[s] = static_cast<V>(p0 + i);  // its place in its row, below width < 2^31
     } else if constexpr (VB != 0) {
       val[s] = i < valid ? vals[g0 + i] : V(0);
     } else {
@@ -263,8 +321,8 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
   if (threadIdx.x < kBins) {
     int total = 0;
     for (int w = 0; w < S::kWarps; ++w) total += count[w * kBins + threadIdx.x];
-    store_word(word, t == 0 ? kInclusive | static_cast<unsigned>(offset[threadIdx.x] + total)
-                            : static_cast<unsigned>(total) + 1u);
+    store_word(word, first ? kInclusive | static_cast<unsigned>(offset[threadIdx.x] + total)
+                           : static_cast<unsigned>(total) + 1u);
   }
   int total;
   const int start = block_digit_offsets(count, S::kWarps, warp_sum, total);
@@ -274,9 +332,9 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
     // the first that published its inclusive prefix
     const int d = threadIdx.x;
     int before = offset[d];  // slots of digit d before this tile's first
-    if (t > 0) {
+    if (!first) {
       before = 0;
-      for (const unsigned* p = word - kBins;; p -= kBins) {  // ends at tile 0's word at the latest
+      for (const unsigned* p = word - kBins;; p -= kBins) {  // ends at the row's first tile
         unsigned w;
         do {
           w = load_word(p);
@@ -320,11 +378,47 @@ __global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBloc
   }
 }
 
+// One stable pass over the digit (key >> shift) & 255 of n keys: block b
+// takes tile t (from next_tile), elements [t * kTile, (t + 1) * kTile), and
+// writes element i of it to offset[d] + (digit d in tiles before t) + (digit
+// d before i in tile t). status: [tiles, 256] look-back words, zeroed.
+// kPositions (VB 4 only): element g's payload is g, its u32 row position,
+// made here and not read (vals unused).
 template <typename K, int VB, bool kPositions = false>
+__global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBlocks)
+    onesweep_kernel(const K* __restrict__ keys, const Payload<VB == 0 ? 1 : VB>* __restrict__ vals,
+                    long long n, int shift, const int* __restrict__ offset, unsigned* status,
+                    int* next_tile, K* __restrict__ out_keys,
+                    Payload<VB == 0 ? 1 : VB>* __restrict__ out_vals) {
+  onesweep_tile<K, VB, kPositions, false>(keys, vals, n, 0, shift, offset, status, next_tile,
+                                          out_keys, out_vals);
+}
+
+// onesweep_kernel for every row of [rows, width] on its own, tiles_per_row
+// tiles a row. offset: [rows, 256], the pass's slab of the row histograms.
+// kPositions: an element's payload is its u32 position in its row.
+template <typename K, int VB, bool kPositions = false>
+__global__ void __launch_bounds__(Shape<K, VB>::kThreads, Shape<K, VB>::kMinBlocks)
+    onesweep_rows_kernel(const K* __restrict__ keys,
+                         const Payload<VB == 0 ? 1 : VB>* __restrict__ vals, long long width,
+                         int tiles_per_row, int shift, const int* __restrict__ offset,
+                         unsigned* status, int* next_tile, K* __restrict__ out_keys,
+                         Payload<VB == 0 ? 1 : VB>* __restrict__ out_vals) {
+  onesweep_tile<K, VB, kPositions, true>(keys, vals, width, tiles_per_row, shift, offset, status,
+                                         next_tile, out_keys, out_vals);
+}
+
+template <typename K, int VB, bool kPositions = false, bool kRows = false>
 cudaError_t set_stage(void) {
-  return cudaFuncSetAttribute(onesweep_kernel<K, VB, kPositions>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Shape<K, VB>::kSmemBytes);
+  if constexpr (kRows) {
+    return cudaFuncSetAttribute(onesweep_rows_kernel<K, VB, kPositions>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Shape<K, VB>::kSmemBytes);
+  } else {
+    return cudaFuncSetAttribute(onesweep_kernel<K, VB, kPositions>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Shape<K, VB>::kSmemBytes);
+  }
 }
 
 // Zeroes the look-back words and tile counter and launches one pass of the
@@ -346,6 +440,30 @@ cudaError_t launch_pass(const void* keys, const void* vals, long long n, int shi
       static_cast<const K*>(keys), static_cast<const V*>(vals), n, shift,
       static_cast<const int*>(offset), status, reinterpret_cast<int*>(status + tiles * kBins),
       static_cast<K*>(out_keys), static_cast<V*>(out_vals));
+  return cudaGetLastError();
+}
+
+// launch_pass for the rows of [rows, width]: onesweep_rows_kernel<K, VB,
+// kPositions>, cdiv(width, kTile) tiles a row.
+template <typename K, int VB, bool kPositions>
+cudaError_t launch_rows_pass(const void* keys, const void* vals, long long rows, long long width,
+                             int shift, const void* offset, void* lookback, void* out_keys,
+                             void* out_vals, cudaStream_t s) {
+  using S = Shape<K, VB>;
+  using V = Payload<VB == 0 ? 1 : VB>;
+  const long long per_row = (width + S::kTile - 1) / S::kTile;
+  const long long tiles = rows * per_row;
+  cudaError_t e = set_stage<K, VB, kPositions, true>();
+  if (e != cudaSuccess) return e;
+  e = cudaMemsetAsync(lookback, 0, (tiles * kBins + 1) * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  unsigned* status = static_cast<unsigned*>(lookback);
+  onesweep_rows_kernel<K, VB, kPositions><<<static_cast<unsigned>(tiles), S::kThreads,
+                                            S::kSmemBytes, s>>>(
+      static_cast<const K*>(keys), static_cast<const V*>(vals), width,
+      static_cast<int>(per_row), shift, static_cast<const int*>(offset), status,
+      reinterpret_cast<int*>(status + tiles * kBins), static_cast<K*>(out_keys),
+      static_cast<V*>(out_vals));
   return cudaGetLastError();
 }
 
@@ -469,4 +587,76 @@ extern "C" int vkrs_onesweep_positions_pass(int device, const void* keys, int ke
         keys, nullptr, n, shift, offset, lookback, out_keys, out_positions, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// vkrs_digit_histograms for every row of keys [rows, width] on its own:
+// offsets[(p * rows + r) * 256 + d] = r * width + #(i < width with
+// (key[r, i] >> 8p) & 255 < d), the first output slot of digit d of row r
+// in pass p. offsets: int32, passes * rows * 256 + rows words (the last rows
+// are the kernel's own); it is zeroed here. rows, width >= 1 and
+// rows * width < 2^31. Returns the first cudaError_t.
+extern "C" int vkrs_digit_histograms_rows(int device, const void* keys, int key_bytes,
+                                          long long rows, long long width, void* offsets,
+                                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((key_bytes != 4 && key_bytes != 8) || rows < 1 || width < 1 ||
+      rows * width >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(offsets, 0, (key_bytes * vkrs::kBins + 1) * rows * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // blocks a row: enough to fill the card when the rows are few, none idle
+  const long long per_block = 16LL / key_bytes * vkrs::kHistUnroll * vkrs::kHistThreads;
+  const long long wanted = (static_cast<long long>(sms) * vkrs::kHistBlocksPerSm + rows - 1) / rows;
+  const int parts = static_cast<int>(
+      std::max(1LL, std::min<long long>((width + per_block - 1) / per_block, wanted)));
+  const unsigned blocks = static_cast<unsigned>(rows * parts);
+  if (key_bytes == 4) {
+    vkrs::digit_histograms_rows_kernel<unsigned><<<blocks, vkrs::kHistThreads, 0, s>>>(
+        static_cast<const unsigned*>(keys), rows, width, parts, static_cast<int*>(offsets));
+  } else {
+    vkrs::digit_histograms_rows_kernel<unsigned long long><<<blocks, vkrs::kHistThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(keys), rows, width, parts,
+        static_cast<int*>(offsets));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vkrs_onesweep_pass for every row of keys [rows, width] on its own, a chain
+// of look-back a row: key [r, i] and its payload go to out slot
+// offset[r, d] + #(j < i with digit d in row r). offset: [rows, 256] int32,
+// a pass's slab of vkrs_digit_histograms_rows; lookback: int32, rows *
+// cdiv(width, tile) * 256 + 1 words for the tile of vkrs_onesweep_shape,
+// zeroed here. positions != 0 (val_bytes 4; vals unused): the payload is
+// each element's u32 position in its row, made by the pass. rows, width >= 1,
+// rows * width < 2^31, 0 <= shift < 8 * key_bytes. Returns the first
+// cudaError_t.
+extern "C" int vkrs_onesweep_rows_pass(int device, const void* keys, int key_bytes,
+                                       const void* vals, int val_bytes, int positions,
+                                       long long rows, long long width, int shift,
+                                       const void* offset, void* lookback, void* out_keys,
+                                       void* out_vals, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows < 1 || width < 1 || rows * width >= (1LL << 31) || (positions && val_bytes != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(vkrs::by_widths(key_bytes, val_bytes, [&](auto k, auto vb) {
+    using K = decltype(k);
+    constexpr int VB = decltype(vb)::value;
+    if constexpr (VB == 4) {
+      if (positions) {
+        return vkrs::launch_rows_pass<K, 4, true>(keys, nullptr, rows, width, shift, offset,
+                                                  lookback, out_keys, out_vals, s);
+      }
+    }
+    return vkrs::launch_rows_pass<K, VB, false>(keys, vals, rows, width, shift, offset,
+                                                lookback, out_keys, out_vals, s);
+  }));
 }

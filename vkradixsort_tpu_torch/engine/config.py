@@ -118,6 +118,29 @@ DEFAULT_CONFIG = SortConfig()
 #     0.26 ms). argsort64: no row; torch.sort won every size on both key
 #     sets (1e8: 13.44-13.49 against 15.04-15.06 uniform, 11.62 against
 #     12.40-12.43 Zipf). Merge lost every argsort size.
+#   - rows, rows64: 2-D keys (sort_segments, and sort, sort_pairs and argsort
+#     of 2-D keys), keyed by the row width: torch.sort(dim=1) in signed
+#     order with a gather a payload ("tiled"), or the row-segmented onesweep
+#     (radix_tiled.sort_rows, "radix_tiled"). Three runs of chip_smoke.py
+#     --rows at widths 2^11, 2^12, ..., 2^21, 4,871, 5,792, 6,889 and
+#     129,280 (rows x width 2^27; 1024 rows at 129,280), u32 keys uniform and
+#     of a normal law through the key-order transform, u64 keys those two
+#     and Zipf(1.3) (BASELINE.json config 4), keys alone, with a 4-byte
+#     payload and argsort: torch.sort up to 2^12 (2^12: u32 keys 5.11-5.17
+#     against 5.54-5.61 ms, argsort 5.28-5.35 against 6.32-6.38; u64 kv
+#     12.17-12.18 against 16.14-16.15 uniform, 10.55-10.56 against
+#     16.29-16.31 Zipf; the row kernels won u32 kv there, 6.42-6.48 against
+#     6.80-6.87, and lost every other case: a row is less than one
+#     7,680-key tile); radix_tiled from 4,871 in every case, turn and run,
+#     torch.sort's time doubling between the two widths (4,871: u32 kv
+#     5.81-5.88 against 13.60-13.63, u32 argsort 5.71-5.78 against
+#     12.04-12.07, u64 kv 15.55-15.58 against 27.79-27.81 uniform and
+#     15.12-15.22 against 26.27-26.28 Zipf, u64 argsort Zipf 14.93-14.99
+#     against 24.44-24.46; 129,280: u32 kv normal 4.37-4.40 against
+#     13.70-13.70, u64 kv Zipf 11.00-11.03 against 25.37-25.39). The bound
+#     is the geometric middle of 2^12 and 4,871, for both key widths. A
+#     payload that does not ride its key (two or more, or 8 bytes on 64-bit
+#     keys) keeps torch.sort at every width.
 #   - dist_local: the distributed sort's shard-local sort of (u32 key,
 #     gidx) with one payload, by the size of a shard's chunk
 #     (parallel/distributed._pick_local_engine; "tiled" there means
@@ -143,6 +166,8 @@ ROUTE_TABLE: dict = {
     "kv2": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
     "kvw": [(1 << 25, "tiled"), (float("inf"), "radix_tiled")],
     "kvw64": [(1 << 23, "tiled"), (float("inf"), "radix_tiled")],
+    "rows": [(4466, "tiled"), (float("inf"), "radix_tiled")],
+    "rows64": [(4466, "tiled"), (float("inf"), "radix_tiled")],
     "dist_local": [((1 << 22) - 1, "tiled"), (float("inf"), "merge")],
     "dist_local64": [(1 << 23, "tiled"), (1 << 25, "merge"), (float("inf"), "tiled")],
 }

@@ -24,14 +24,28 @@ Port of ``vkradixsort_tpu/ops/dispatch.py``. The engines so far:
   "samplesort"   row sorts, splitters, run placement, bucket sorts
                  (ops/samplesort.py); at most one payload
 
+2-D keys (``sort_segments``, and ``sort``, ``sort_pairs`` and ``argsort``
+given 2-D keys) sort every row on its own, on one of two engines:
+
+  engine         what runs
+  -------------  ------------------------------------------------------------
+  "tiled"        ``torch.sort(dim=1, stable=True)`` in sign-flipped int space,
+                 then one gather a payload (ops/segsort.py); any payloads
+  "radix_tiled"  the row-segmented onesweep (``radix_tiled.sort_rows``): one
+                 histogram of every row's digits, then per pass one kernel
+                 whose tiles never cross a row; no payload or one that
+                 rides with its key, and argsort on row-local positions made
+                 by the first pass; rows x width < 2^31
+
 The merge, radix_tiled, fused, bitonic and samplesort engines launch
 hand-written CUDA kernels on CUDA tensors and run their plain versions on
 CPU tensors. Each engine's entry (:data:`SORTS`) holds its own rules: what
 payloads it moves, its size contract, its key order. ``backend=None``
 decides from the tensor, up front: CUDA
 tensors follow ``engine/config.ROUTE_TABLE`` (tiled or radix_tiled, by
-operation, payload set, key width and size, as measured on the H100); CPU
-tensors take "tiled". No default route leads to merge, fused, reference,
+operation, payload set, key width and size, as measured on the H100; 2-D
+keys by their row width, rows ``rows`` and ``rows64``); CPU tensors take
+"tiled". No default route leads to merge, fused, reference,
 bitonic or samplesort. Every entry point is stable,
 ``sort_pairs(stable=False)`` too, and bitwise-exact against the JAX
 package's stable results on the same inputs.
@@ -45,7 +59,7 @@ Each entry point runs in the span ``vkrs/<entry point>``, the engine a
 call takes in ``vkrs/engine/<engine>``, and a transform that is not the
 identity in ``vkrs/keys/encode`` and ``vkrs/keys/decode``
 (``utils/profiling.span``); each call where the dispatcher chose an engine
-counts one ``route.<engine>``.
+counts one ``route.<engine>``, 2-D calls too.
 """
 
 from __future__ import annotations
@@ -113,6 +127,22 @@ def _route(keys: torch.Tensor, backend: str | None, vals: tuple = (), op: str = 
     n = keys.shape[0]
     path = route_for(_table_op(op, vals, wide), n, wide)
     if path == "radix_tiled" and not radix_tiled.accepts(n, vals):
+        return "tiled"
+    return path
+
+
+def _route_rows(keys: torch.Tensor, vals: tuple = ()) -> str:
+    """The engine of a 2-D call: "tiled" (``torch.sort`` along the rows) for
+    CPU tensors; for CUDA tensors the ``ROUTE_TABLE`` row ``rows`` (``rows64``
+    for u64-encoded keys) at the row width, where "radix_tiled" takes the
+    call (``radix_tiled.accepts_rows``: no payload or one that rides its
+    key) and "tiled" otherwise."""
+    if keys.device.type != "cuda":
+        return "tiled"
+    wide = sortable_dtype(keys.dtype) == torch.uint64
+    path = route_for("rows", keys.shape[1], wide)
+    if path == "radix_tiled" and not radix_tiled.accepts_rows(keys.numel(), 8 if wide else 4,
+                                                              vals):
         return "tiled"
     return path
 
@@ -235,13 +265,22 @@ def argsort(
     one payload, and leaves the sorted keys encoded. On merge that is the
     plane set the JAX package's ``merge.argsort_merge`` moves (key planes
     and positions), so it needs no twin of its own. 2-D keys give each
-    row's permutation, from ``torch.sort(dim=1)``.
+    row's permutation (uint32 row-local positions below 2^32), routed by
+    the row width (``ROUTE_TABLE["rows"]``, ``"rows64"``): on "radix_tiled"
+    ``radix_tiled.argsort_rows``, whose first pass makes the positions; on
+    "tiled", CPU tensors and narrower rows, ``torch.sort(dim=1)``'s own.
     """
     with profiling.span("vkrs/argsort"):
         if keys.dim() == 2:
             if backend is not None:
                 raise ValueError("2-D keys route to sort_segments; backend= does not apply")
-            return segsort.argsort_segments(_encode(keys, descending))
+            path = _route_rows(keys)
+            profiling.count("route." + path)
+            enc = _encode(keys, descending)
+            with profiling.span("vkrs/engine/" + path):
+                if path == "tiled":
+                    return segsort.argsort_segments(enc)
+                return radix_tiled.argsort_rows(enc)
         if keys.dim() != 1:
             raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {tuple(keys.shape)}")
         path = _route(keys, backend, op="argsort")
@@ -256,11 +295,17 @@ def argsort(
 
 def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
     """Sort every row of a 2-D tensor independently (batched segment sort),
-    stably, with ``torch.sort`` along the rows.
+    stably: ties in input order, ``descending=True`` too.
 
     ``values`` may be one 2-D tensor or a tuple/list of them. Returns
     ``sorted_keys`` or ``(sorted_keys, permuted_values)`` with the container
-    type kept.
+    type kept. CUDA tensors follow ``ROUTE_TABLE["rows"]`` (``"rows64"`` for
+    64-bit keys) by the row width: "radix_tiled", the row-segmented
+    onesweep (``radix_tiled.sort_rows``), where it was measured faster and
+    the call carries no payload or one that rides its key; "tiled",
+    ``torch.sort`` along the rows with one gather a payload
+    (``segsort.sort_segments``), at narrower rows, for every other payload
+    set, and for CPU tensors. Counts one ``route.<engine>``.
     """
     with profiling.span("vkrs/sort_segments"):
         if keys.dim() != 2:
@@ -269,7 +314,17 @@ def sort_segments(keys: torch.Tensor, values=None, *, descending: bool = False):
         vals = () if values is None else (tuple(values) if multi else (values,))
         if any(v.shape != keys.shape for v in vals):
             raise ValueError("sort_segments payloads must have the keys' shape")
-        out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
+        if any(v.device != keys.device for v in vals):
+            raise ValueError("keys and values must lie on one device")
+        path = _route_rows(keys, vals)
+        profiling.count("route." + path)
+        enc = _encode(keys, descending)
+        with profiling.span("vkrs/engine/" + path):
+            if path == "tiled":
+                out_enc, out_vs = segsort.sort_segments(enc, vals)
+            else:
+                out_enc, out_v = radix_tiled.sort_rows(enc, vals[0] if vals else None)
+                out_vs = (out_v,) if vals else ()
         out_k = _decode(out_enc, keys.dtype, descending)
         if values is None:
             return out_k

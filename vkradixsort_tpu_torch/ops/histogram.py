@@ -2,9 +2,11 @@
 
 Port of ``vkradixsort_tpu/ops/histogram.py``. ``tile_histograms``, per-tile
 256-bin counts of one pass's digit (the JAX package's API, kernel
-``csrc/histogram.cu``), and ``digit_histograms``, every pass's 256 counts
-from one read of the keys, scanned into each digit's first output slot (the
-card's sort route, kernel ``csrc/onesweep.cu``). Each launches its kernel
+``csrc/histogram.cu``), ``digit_histograms``, every pass's 256 counts from
+one read of the keys, scanned into each digit's first output slot (the
+card's sort route, kernel ``csrc/onesweep.cu``), and
+``digit_histograms_rows``, the same for every row of a 2-D array (the row
+sort's route, the same file). Each launches its kernel
 on a CUDA tensor and runs its plain version (``bincount``) on a CPU tensor.
 
 The JAX kernel padded the keys to 8 tiles (a Mosaic block-shape artifact)
@@ -110,3 +112,57 @@ def digit_histograms(enc: torch.Tensor) -> torch.Tensor:
     else:
         out.zero_()
     return out[:-1].view(passes, NUM_BINS)
+
+
+def check_rows_input(enc2d: torch.Tensor) -> None:
+    """Raise on what the row kernels do not take: 2-D uint32/uint64 keys of
+    fewer than 2^31 elements (int32 slots)."""
+    if enc2d.dtype not in (torch.uint32, torch.uint64) or enc2d.dim() != 2:
+        raise TypeError(f"the row kernels take 2-D uint32/uint64 keys, got {enc2d.dtype} "
+                        f"{tuple(enc2d.shape)}")
+    if enc2d.numel() >= 1 << 31:
+        raise ValueError(f"the row slots are int32, so rows x width must be below 2^31; "
+                         f"got {tuple(enc2d.shape)}")
+
+
+def digit_histograms_rows_plain(enc2d: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`digit_histograms_rows`: a ``bincount`` of
+    ``row * 256 + digit`` a pass, an exclusive cumsum along each row, and
+    each row's first slot."""
+    rows, width = enc2d.shape
+    flat = enc2d.reshape(-1)
+    row_of = torch.arange(rows * width, device=enc2d.device) // max(width, 1)
+    first = (torch.arange(rows, device=enc2d.device) * width)[:, None]
+    out = []
+    for p in range(num_passes(enc2d.dtype)):
+        counts = torch.bincount(row_of * NUM_BINS + extract_digit(flat, p * BITS_PER_PASS),
+                                minlength=rows * NUM_BINS).view(rows, NUM_BINS)
+        out.append(first + torch.cumsum(counts, 1) - counts)
+    return torch.stack(out).to(torch.int32)
+
+
+def digit_histograms_rows(enc2d: torch.Tensor) -> torch.Tensor:
+    """``[passes, rows, 256]`` int32: ``offset[p, r, d]``, row ``r``'s first
+    slot (``r * width``) plus the number of its keys whose digit
+    ``(key >> 8p) & 0xFF`` is below ``d``: the first output slot of digit
+    ``d`` of row ``r`` in the stable pass ``p`` of a sort of each row on its
+    own. ``enc2d``: ``[rows, width]`` uint32 (4 passes) or uint64 (8)
+    encoded keys, rows x width < 2^31. One launch of
+    ``digit_histograms_rows_kernel`` on a CUDA tensor (counter
+    ``launch.digit_histograms_rows``)."""
+    check_rows_input(enc2d)
+    if enc2d.device.type == "cpu":
+        return digit_histograms_rows_plain(enc2d)
+    if enc2d.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc2d.device}")
+    if not enc2d.is_contiguous():
+        raise ValueError("the radix kernels take contiguous keys")
+    passes, (rows, width) = num_passes(enc2d.dtype), enc2d.shape
+    out = torch.empty((passes * NUM_BINS + 1) * rows, dtype=torch.int32, device=enc2d.device)
+    if enc2d.numel():  # the kernel zeroes out, and keeps a row's done count after the offsets
+        kernels.call("digit_histograms_rows", enc2d.device, enc2d.data_ptr(),
+                     enc2d.element_size(), rows, width, out.data_ptr())
+        profiling.count("launch.digit_histograms_rows")
+    else:
+        out.zero_()
+    return out[:passes * rows * NUM_BINS].view(passes, rows, NUM_BINS)

@@ -118,6 +118,8 @@ def load() -> ctypes.CDLL:
         "digit_histograms": [ptr, i32, i64, ptr],
         "onesweep_pass": [ptr, i32, ptr, i32, i64, i32, ptr, ptr, ptr, ptr],
         "onesweep_positions_pass": [ptr, i32, i64, i32, ptr, ptr, ptr, ptr],
+        "digit_histograms_rows": [ptr, i32, i64, i64, ptr],
+        "onesweep_rows_pass": [ptr, i32, ptr, i32, i32, i64, i64, i32, ptr, ptr, ptr, ptr],
         "fused": [ptr, ptr, ptr, ptr, i32, i32, i32],
         "bitonic_block": [ptr, ptr, ptr, i32, i64, i64, i32, i32, ints, i32],
         "bitonic_group": [ptr, i32, i64, i32, i32, i32],

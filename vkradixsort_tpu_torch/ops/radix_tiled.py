@@ -35,6 +35,14 @@ in one launch. ``argsort_radix_tiled`` is the engine's argsort: the keys
 sorted with their u32 positions. Where a sort carries its positions
 (``POSITIONS``), the first pass makes them from each element's index and
 the later passes carry them, so no positions tensor is built or read.
+
+``sort_rows`` and ``argsort_rows`` sort every row of a 2-D array on its own
+(the batched segment sort of ``sort_segments`` and 2-D ``argsort``): one
+``histogram.digit_histograms_rows`` a sort, then one ``onesweep_rows_pass``
+a pass, whose tiles never cross a row and whose look-back stops at the
+row's first tile (kernels ``digit_histograms_rows_kernel`` and
+``onesweep_rows_kernel``, ``csrc/onesweep.cu``); an argsort's positions are
+row-local, made by the first pass.
 """
 
 from __future__ import annotations
@@ -393,3 +401,165 @@ def argsort_radix_tiled(enc: torch.Tensor) -> torch.Tensor:
     if enc.shape[0] <= 1:
         return positions(enc.shape[0], enc.device)
     return sort_onesweep(enc, POSITIONS)[1]
+
+
+def _check_rows_move(enc2d: torch.Tensor, values) -> None:
+    if values is not None and values is not POSITIONS:
+        if values.shape != enc2d.shape or values.device != enc2d.device:
+            raise ValueError("values must have the keys' shape and device")
+        if not accepts(0, (values,)):
+            raise TypeError(f"radix_tiled moves payloads of {PAYLOAD_BYTES} bytes, "
+                            f"got {values.dtype}")
+
+
+def row_positions(rows: int, width: int, device) -> torch.Tensor:
+    """``[rows, width]`` uint32: each element's position in its row."""
+    return positions(width, device).expand(rows, width).contiguous()
+
+
+def onesweep_rows_pass_plain(enc2d: torch.Tensor, values, shift: int, offset: torch.Tensor,
+                             tile: int = histogram.TILE):
+    """Plain version of :func:`onesweep_rows_pass`, cut as the kernel cuts:
+    each row into tiles of ``tile`` (the last one partial), tile j of row r
+    based at ``offset[r]`` plus the digit's counts in the row's tiles before
+    j, then each element at its base plus its stable rank in the tile. The
+    result does not depend on ``tile``."""
+    rows, width = enc2d.shape
+    per_row = cdiv(width, tile)
+    digits = torch.full((rows, per_row * tile), NUM_BINS, dtype=torch.int32,
+                        device=enc2d.device)  # 256: the padding, after every digit
+    digits[:, :width] = extract_digit(enc2d.reshape(-1), shift).view(rows, width)
+    tiles = digits.view(rows * per_row, tile)
+    at = torch.arange(rows * per_row, device=enc2d.device)[:, None] * (NUM_BINS + 1) + tiles
+    counts = torch.bincount(at.reshape(-1), minlength=rows * per_row * (NUM_BINS + 1))
+    counts = counts.view(rows, per_row, NUM_BINS + 1)[..., :NUM_BINS].to(torch.int32)
+    bases = offset[:, None, :] + torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    rank = reference.rank_in_chunk(tiles).view(rows, per_row * tile)[:, :width]
+    tile_of = (torch.arange(width, device=enc2d.device) // tile).expand(rows, width)
+    row_of = torch.arange(rows, device=enc2d.device)[:, None].expand(rows, width)
+    d = digits[:, :width].to(torch.int64)
+    dest = (bases[row_of, tile_of, d] + rank).reshape(-1).to(torch.int64)
+    out_k = reference.scatter(enc2d.reshape(-1), dest).view(rows, width)
+    out_v = None if values is None else reference.scatter(values.reshape(-1), dest).view(rows, width)
+    return out_k, out_v
+
+
+def _rows_lookback_words(enc2d: torch.Tensor, values) -> int:
+    tile = onesweep_shape(enc2d.device.index, enc2d.element_size(), _width(values))["tile"]
+    rows, width = enc2d.shape
+    return rows * cdiv(width, tile) * NUM_BINS + 1
+
+
+def rows_lookback_state(enc2d: torch.Tensor, values) -> torch.Tensor:
+    """:func:`lookback_state` of the row passes of these ``[rows, width]``
+    keys and ``values``: one word a tile of a row and digit, and one more."""
+    return torch.empty(_rows_lookback_words(enc2d, values), dtype=torch.int32,
+                       device=enc2d.device)
+
+
+def onesweep_rows_pass(enc2d: torch.Tensor, values, shift: int, offset: torch.Tensor,
+                       state=None):
+    """:func:`onesweep_pass` for every row of ``[rows, width]`` keys on its
+    own: the keys and ``values`` (None, a tensor of their shape, or
+    :data:`POSITIONS`, each element's u32 position in its row, made by the
+    kernel) of each row in stable order of the digit ``(key >> shift) &
+    0xFF``, in one launch of ``onesweep_rows_kernel`` (counter
+    ``launch.onesweep_rows_pass``). ``offset``: the pass's ``[rows, 256]``
+    slab of :func:`histogram.digit_histograms_rows`; ``state``: the
+    :func:`rows_lookback_state` of these keys and values (allocated when
+    None). Returns ``(out_keys, out_values)``; the inputs are not
+    modified."""
+    histogram.check_rows_input(enc2d)
+    if not 0 <= shift < 8 * enc2d.element_size():
+        raise ValueError(f"bad shift {shift} for {enc2d.dtype} keys")
+    made = values is POSITIONS
+    _check_rows_move(enc2d, values)
+    rows, width = enc2d.shape
+    if offset.dtype != torch.int32 or tuple(offset.shape) != (rows, NUM_BINS):
+        raise ValueError(f"offset must be [{rows}, {NUM_BINS}] int32, got {offset.dtype} "
+                         f"{tuple(offset.shape)}")
+    if enc2d.device.type == "cpu":
+        return onesweep_rows_pass_plain(
+            enc2d, row_positions(rows, width, enc2d.device) if made else values, shift, offset)
+    if enc2d.device.type != "cuda":
+        raise ValueError(f"the radix kernels run on CUDA tensors, got {enc2d.device}")
+    if not enc2d.is_contiguous() or not (values is None or made or values.is_contiguous()):
+        raise ValueError("the onesweep kernel takes contiguous keys and values")
+    if offset.device != enc2d.device or not offset.is_contiguous():
+        raise ValueError("offset must be contiguous and on the keys' device")
+    if state is None:
+        state = rows_lookback_state(enc2d, values)
+    elif (state.dtype != torch.int32 or state.device != enc2d.device
+          or state.numel() != _rows_lookback_words(enc2d, values)):
+        raise ValueError("state must be the rows_lookback_state of these keys and values")
+    out_k = torch.empty_like(enc2d)
+    if made:
+        out_v = torch.empty((rows, width), dtype=torch.uint32, device=enc2d.device)
+    else:
+        out_v = None if values is None else torch.empty_like(values)
+    if enc2d.numel():
+        kernels.call("onesweep_rows_pass", enc2d.device, enc2d.data_ptr(), enc2d.element_size(),
+                     0 if values is None or made else values.data_ptr(), _width(values),
+                     int(made), rows, width, shift, offset.data_ptr(), state.data_ptr(),
+                     out_k.data_ptr(), 0 if out_v is None else out_v.data_ptr())
+        profiling.count("launch.onesweep_rows_pass")
+    return out_k, out_v
+
+
+def accepts_rows(numel: int, key_bytes: int, vals: tuple) -> bool:
+    """Whether :func:`sort_rows` sorts 2-D keys of ``numel`` elements,
+    ``key_bytes`` a key encoded, carrying the payload set ``vals``: fewer
+    than 2^31 elements (int32 slots), and no payload or one of
+    :data:`PAYLOAD_BYTES` that rides the passes with its key (at most
+    :data:`CARRY_MAX_BYTES` together). Any other set keeps the library's
+    row sort."""
+    if numel >= 1 << 31 or len(vals) > 1:
+        return False
+    return not vals or (accepts(0, vals) and key_bytes + vals[0].element_size()
+                        <= CARRY_MAX_BYTES)
+
+
+def sort_rows(enc2d: torch.Tensor, values=None):
+    """Stable LSD sort of every row of ``[rows, width]`` uint32/uint64
+    encoded keys on its own, carrying ``values``: None, one payload of
+    their shape that rides with its key (:func:`accepts_rows`), or
+    :data:`POSITIONS` (each element's u32 position in its row, made by the
+    first pass). Every row's digits counted and scanned once (span
+    ``vkrs/radix/histogram``), then one :func:`onesweep_rows_pass` a digit
+    (``vkrs/radix/scatter``), 4 for u32 and 8 for u64, on one look-back
+    state; counts one ``radix.rows``. On CPU tensors the plain versions.
+    Returns ``(sorted_keys, sorted_values)``; the inputs are not
+    modified."""
+    histogram.check_rows_input(enc2d)
+    _check_rows_move(enc2d, values)
+    if values is not None and values is not POSITIONS and not carries(enc2d, values):
+        raise TypeError(f"sort_rows carries a payload of at most "
+                        f"{CARRY_MAX_BYTES - enc2d.element_size()} bytes with these keys, "
+                        f"got {values.dtype}")
+    profiling.count("radix.rows")
+    rows, width = enc2d.shape
+    if width <= 1 or rows == 0:
+        if values is POSITIONS:
+            return enc2d.clone(), row_positions(rows, width, enc2d.device)
+        return enc2d.clone(), None if values is None else values.clone()
+    if values is POSITIONS:
+        profiling.count("radix.positions_in_pass")
+    enc2d = enc2d.contiguous()
+    if values is not None and values is not POSITIONS:
+        values = values.contiguous()
+    with profiling.span("vkrs/radix/histogram"):
+        offsets = histogram.digit_histograms_rows(enc2d)
+    state = None if enc2d.device.type == "cpu" else rows_lookback_state(enc2d, values)
+    for p in range(num_passes(enc2d.dtype)):
+        with profiling.span("vkrs/radix/scatter"):
+            enc2d, values = onesweep_rows_pass(enc2d, values, p * BITS_PER_PASS, offsets[p],
+                                               state)
+    return enc2d, values
+
+
+def argsort_rows(enc2d: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of every row of ``[rows, width]`` uint32/uint64
+    encoded keys: ``[rows, width]`` uint32 row-local positions, from
+    ``sort_rows(enc2d, POSITIONS)``, whose first pass makes them; the
+    sorted keys are dropped. The keys are not modified."""
+    return sort_rows(enc2d, POSITIONS)[1]
